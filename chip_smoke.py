@@ -1,0 +1,530 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``hebbax_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (non-zero exit, no result line):
+
+1. build every CUDA kernel of the port from ``hebbax_torch/csrc`` (nvcc,
+   one process per library, all started together);
+2. at each of the 22 Hebbian sites of UNet2D at batch 32 and 128x128 —
+   the tensors a real training forward gives the site — hold the SWTA
+   delta kernel against its plain PyTorch version (max abs error <=
+   1e-4 * max|plain|: float32 sums over up to 5e5 pixels taken in another
+   order) and time, with CUDA events after warm-up, the kernel, the plain
+   version and one cuDNN composition of the same function (softmax +
+   ``torch.nn.grad.conv2d_weight`` + epilogue, timed only), beside the
+   least time the card could take (bytes over 3.35 TB/s or float32 FLOPs
+   over 67 TFLOP/s, the larger);
+3. on a small input (batch 2, 32x32), a training forward on the card
+   (kernel) against the same weights on the CPU (plain version): logits
+   and all 22 deltas;
+4. the main path through the port's CLIs on in-memory synthetic 128x128
+   data (``scripts/make_synth_data.py::make_2d``'s generator, 64 train /
+   16 val): (a) ``pretrain_hebbian_unsup_2d`` (swta_t, K=50, out_conv
+   excluded, Adam, lr 1e-6, batch 32, 2 epochs, warmup 1), (b)
+   ``train_sup_2d --load_hebbian_weights`` (a)'s last.ckpt at regime 50,
+   (c) ``test_2d --hebbian_pretrain 1`` on (b)'s best_JI.ckpt.  The kernel
+   launch count is zeroed just before each and read just after; (a) must
+   launch it 22 times per step.  After each of (a) and (b) has run and
+   its count was read, 10 more steps on one batch give the steady step
+   time, and 3 steps under ``torch.profiler`` the device time by kernel
+   class;
+5. print the ``{"kernels": [...]}`` line, the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
+
+It needs one card, imports nothing of JAX or of the ``hebbax`` package,
+and writes only under ``build/`` beside this file.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+RUN_DIR = os.path.join(ROOT, "build", "chip_smoke")
+PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+PEAK_F32_FLOP_PER_S = 67e12     # H100 SXM float32, no tensor cores
+BATCH, SIZE, N_TRAIN, N_VAL = 32, 128, 64, 16
+K_TEMP = 50.0
+TOL = 1e-4                      # max abs error / max |plain|
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def synth_items(n_train, n_val, size, seed=0):
+    """``scripts/make_synth_data.py::make_2d`` in memory: one generator
+    for both splits, a disc per image, RGB uint8 images, 0/1 masks."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for split, n in (("train", n_train), ("val", n_val)):
+        items = []
+        for i in range(n):
+            yy, xx = np.mgrid[:size, :size]
+            cy, cx = rng.integers(size // 4, 3 * size // 4, 2)
+            r = rng.integers(size // 8, size // 4)
+            mask = ((yy - cy) ** 2 + (xx - cx) ** 2 < r * r).astype(
+                np.uint8)
+            img = np.stack([mask * 150 + 50, mask * 100 + 70,
+                            np.full_like(mask, 90)], -1).astype(np.uint8)
+            img = np.clip(img + rng.integers(0, 30, img.shape), 0,
+                          255).astype(np.uint8)
+            items.append((f"{i}.png", img, mask))
+        out[split] = items
+    return out
+
+
+def array_dataset_class():
+    from hebbax_torch.data import SegDataset2D, regime_split
+
+    class ArrayDataset(SegDataset2D):
+        """SegDataset2D over in-memory (name, image, mask) items."""
+
+        def __init__(self, items, mean, std, split, sup=True, regime=100,
+                     seed=0, size=(SIZE, SIZE)):
+            names = regime_split([n for n, _, _ in items], regime, seed,
+                                 sup)
+            by_name = {n: (img, m) for n, img, m in items}
+            self.items = [by_name[n] for n in names]
+            self.image_paths = list(names)
+            self.mask_paths = None
+            self.sup = sup
+            self.train = split == "train"
+            self.mean, self.std = mean, std
+            self.size = size
+            self.seed = seed
+            self.cache_decoded = False
+            self._cache = {}
+
+        def _decoded(self, index):
+            img, mask = self.items[index]
+            return img, (mask if self.sup else None)
+
+    return ArrayDataset
+
+
+def make_loaders(items, args, regime):
+    from hebbax_torch.config.datasets import dataset_cfg, input_stats
+    from hebbax_torch.data import Loader
+
+    ds_cls = array_dataset_class()
+    mean, std = input_stats(dataset_cfg(args.dataset_name), args.input1)
+    train = ds_cls(items["train"], mean, std, "train", regime=regime,
+                   seed=args.seed)
+    val = ds_cls(items["val"], mean, std, "val", seed=args.seed)
+    return {"train": Loader(train, args.batch_size, shuffle=True,
+                            seed=args.seed, num_workers=args.num_workers),
+            "val": Loader(val, args.batch_size, shuffle=False,
+                          num_workers=args.num_workers)}
+
+
+def cuda_time_ms(fn, warmup=2, iters=10):
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(n, i, h, w, o, k):
+    """(bound_ms, bound_by) of one SWTA delta: each input read once, the
+    output written once; 2*P*M*O float32 operations."""
+    p, m = n * h * w, i * k * k
+    t_bytes = 4.0 * (p * (i + o) + 2 * m * o) / PEAK_BYTES_PER_S
+    t_ops = 2.0 * p * m * o / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def library_delta(w, x, y, k, pad):
+    """One cuDNN composition of the same function (timed only)."""
+    import torch
+    r = torch.softmax(k * y, dim=1)
+    pos = torch.nn.grad.conv2d_weight(x, w.shape, r, padding=pad)
+    return pos - r.sum(dim=(0, 2, 3))[:, None, None, None] * w
+
+
+def hebbian_model(device, seed=0):
+    from hebbax_torch.hebb.spec import HebbSpec
+    from hebbax_torch.models import get_network
+    from hebbax_torch.utils.seeding import make_generator
+
+    spec = HebbSpec(mode="swta_t", k=K_TEMP, exclude=("out_conv",))
+    return get_network("unet", 3, 2, hebb=spec, device=device,
+                       generator=make_generator(seed),
+                       dropout_generator=make_generator(seed + 1, device))
+
+
+def capture_sites(model, images):
+    """(name, w, x, y, padding) of every Hebbian conv in one training
+    forward."""
+    import torch
+    from hebbax_torch.hebb.layers import HConv
+    from hebbax_torch.hebb.surgery import pop_deltas
+
+    sites, hooks = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, HConv) and m.spec is not None:
+            def hook(mod, inp, out, name=name):
+                sites.append((name, mod.weight.detach().clone(),
+                              inp[0].detach(), out.detach(), mod.padding))
+            hooks.append(m.register_forward_hook(hook))
+    model.train()
+    with torch.no_grad():
+        model(images)
+    for h in hooks:
+        h.remove()
+    pop_deltas(model)
+    return sites
+
+
+def phase_sites(device, images):
+    import torch
+    from hebbax_torch.hebb import kernels, rules
+
+    model = hebbian_model(device)
+    sites = capture_sites(model, images)
+    check(len(sites) == 22, f"expected 22 Hebbian sites, got {len(sites)}")
+    rows = []
+    log(f"{'site':36s} {'N,I,H,W,O,k':>22s} {'err/max':>9s} "
+        f"{'kernel_ms':>9s} {'plain_ms':>9s} {'library_ms':>10s} "
+        f"{'bound_ms':>9s}")
+    for name, w, x, y, pad in sites:
+        n, i, h, wd = x.shape
+        o, k = w.shape[0], w.shape[2]
+        plain = rules.swta_conv_delta(w, x, y, K_TEMP, pad)
+        got = kernels.SWTA_DELTA(w, x, y, K_TEMP, pad)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        scale = float(plain.abs().max())
+        check(np.isfinite(err) and err <= TOL * scale,
+              f"{name}: kernel vs plain max abs error {err} > "
+              f"{TOL} * {scale}")
+        k_ms = cuda_time_ms(lambda: kernels.SWTA_DELTA(w, x, y, K_TEMP, pad))
+        p_ms = cuda_time_ms(lambda: rules.swta_conv_delta(w, x, y, K_TEMP,
+                                                          pad))
+        l_ms = cuda_time_ms(lambda: library_delta(w, x, y, K_TEMP, pad))
+        b_ms, b_by = bound(n, i, h, wd, o, k)
+        rows.append(dict(site=name, shape=[n, i, h, wd, o, k],
+                         max_abs_err=err, rel_err=err / scale, ms=k_ms,
+                         plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                         bound_by=b_by))
+        log(f"{name:36s} {str((n, i, h, wd, o, k)):>22s} "
+            f"{err / scale:9.2e} {k_ms:9.4f} {p_ms:9.4f} {l_ms:10.4f} "
+            f"{b_ms:9.4f}")
+    log("sites " + json.dumps(rows))
+    return rows
+
+
+def phase_small_reference(device):
+    """Training forward on the card (kernel) vs the CPU (plain version),
+    same weights and input."""
+    import torch
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.hebb.surgery import pop_deltas
+    from hebbax_torch.ops.dropout import Dropout
+
+    gpu = hebbian_model(device, seed=3)
+    cpu = hebbian_model("cpu", seed=3)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    for m in (gpu, cpu):
+        for mod in m.modules():
+            if isinstance(mod, Dropout):
+                mod.p = 0.0             # dropout off: the streams differ
+        m.train()
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 3, 32, 32)).astype(np.float32))
+    before = kernels.SWTA_DELTA.launches
+    with torch.no_grad():
+        out_g = gpu(x.to(device)).cpu()
+        out_c = cpu(x)
+    check(kernels.SWTA_DELTA.launches == before + 22,
+          "the card's training forward did not launch the kernel 22 times")
+    dg, dc = pop_deltas(gpu), pop_deltas(cpu)
+    check(set(dg) == set(dc) and len(dg) == 22, "delta sites differ")
+    logit_err = float((out_g - out_c).abs().max())
+    check(logit_err <= 1e-4, f"logits card vs CPU differ by {logit_err}")
+    worst = max(float((dg[n].cpu() - dc[n]).abs().max())
+                / float(dc[n].abs().max()) for n in dc)
+    # BN over the 2x2x2 bottleneck and K=50 amplify conv rounding (cuDNN
+    # vs oneDNN) in the deltas; the CPU parity tests hold 1e-3 likewise
+    check(worst <= 1e-3, f"deltas card vs CPU differ by {worst} of scale")
+    log(f"small-input reference: logits max abs diff {logit_err:.3e}, "
+        f"deltas max diff / scale {worst:.3e}")
+
+
+def timed_step(step, times, watch=None, snapshots=None):
+    import torch
+
+    def wrapped(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if watch is not None:
+            snapshots.append(
+                state.model.state_dict()[watch].detach().clone())
+        return state, out
+    return wrapped
+
+
+def steady_step_ms(trainer, step, n=10):
+    """Host times (ms) of n more train steps on one batch, each ended by a
+    synchronize, after the run's own steps warmed up cuDNN and the
+    allocator.  Made after the main path's launch count was read."""
+    import torch
+
+    batch = trainer.prep(next(iter(trainer.loaders["train"])))
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.state, _ = step(trainer.state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def kernel_group(name):
+    """Coarse class of a CUDA kernel by its name."""
+    low = name.lower()
+    if "swta_" in low:
+        return "swta_delta"
+    if any(s in low for s in ("conv", "cudnn", "xmma", "implicit", "grad")):
+        return "convolution"
+    if "gemm" in low or "cutlass" in low:
+        return "matmul"
+    return "other"
+
+
+def profile_steps(trainer, step, steady_ms, n=3):
+    """torch.profiler over n train steps on one batch: device time per
+    step by kernel class, its share of the unprofiled step's median host
+    time ``steady_ms``, and the heaviest kernels.  Made after the main
+    path's launch count was read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer.prep(next(iter(trainer.loaders["train"])))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            trainer.state, _ = step(trainer.state, batch)
+        torch.cuda.synchronize()
+    kernels = {}
+    for evt in prof.key_averages():
+        if str(evt.device_type).endswith("CUDA"):
+            us = getattr(evt, "device_time_total", None)
+            if us is None:
+                us = evt.cuda_time_total
+            kernels[evt.key] = us / 1e3 / n
+    groups = {}
+    for name, ms in kernels.items():
+        g = kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+    device_ms = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_ms": device_ms, "step_ms": steady_ms,
+            "busy_share": device_ms / steady_ms, "groups_ms": groups,
+            "top_ms": [[name[:80], ms] for name, ms in top]}
+
+
+def all_on(model, device_type):
+    return all(t.device.type == device_type for t in
+               list(model.parameters()) + list(model.buffers()))
+
+
+def phase_main_path(items, device="0"):
+    import torch
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import pretrain_hebbian_unsup_2d as pretrain
+    from hebbax_torch.cli import test_2d
+    from hebbax_torch.cli import train_sup_2d
+    from hebbax_torch.hebb import kernels
+
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    on = "cpu" if device == "cpu" else "cuda"
+    base = ["--device", device, "--path_dataset", "synthetic/GlaS",
+            "--dataset_name", "GlaS", "--path_root_exp", RUN_DIR,
+            "-b", str(BATCH), "-e", "2", "-w", "1", "--num_workers", "4"]
+    launches = {}
+
+    # (a) Hebbian pretraining
+    args = pretrain.add_args(common.base_parser_2d()).parse_args(base + [
+        "-n", "unet", "--exclude", "out_conv", "--hebb_mode", "swta_t",
+        "--hebb_inv_temp", str(int(K_TEMP)), "--optimizer", "adam",
+        "-l", "1e-6", "--debug", ""])
+    trainer = pretrain.build(args, make_loaders(items, args, 100))
+    watch = "encoder.in_conv.conv2.weight"
+    w0 = trainer.state.model.state_dict()[watch].detach().clone()
+    times_a, snaps = [], []
+    raw_step = trainer.train_step
+    trainer.train_step = timed_step(raw_step, times_a, watch, snaps)
+    kernels.SWTA_DELTA.launches = 0
+    trainer.run()
+    launches["a"] = kernels.SWTA_DELTA.launches
+    steps_a = len(times_a)
+    per_epoch = len(trainer.loaders["train"])
+    check(steps_a == 2 * per_epoch, f"pretrain ran {steps_a} steps")
+    check(launches["a"] == 22 * steps_a,
+          f"pretrain launched the kernel {launches['a']} times, expected "
+          f"22 x {steps_a}")
+    check(all(torch.equal(s, w0) for s in snaps[:per_epoch]),
+          "a Hebbian kernel changed in epoch 0 (lr 0)")
+    check(not torch.equal(snaps[-1], w0),
+          "the Hebbian kernels did not change in epoch 1")
+    check(all_on(trainer.state.model, on), f"a model tensor is off {on}")
+    losses = ([r["loss"] for r in trainer.train_log.rows]
+              + [r["loss"] for r in trainer.val_log.rows])
+    check(all(np.isfinite(v) for v in losses), f"pretrain losses {losses}")
+    run_a = trainer.paths.run
+    log(f"(a) pretrain: {steps_a} steps, kernel launches {launches['a']}, "
+        f"step ms {[round(t, 3) for t in times_a]}, losses {losses}")
+    steady = {"a": steady_step_ms(trainer, raw_step)}
+    profiled = {"a": profile_steps(trainer, raw_step,
+                                   float(np.median(steady["a"])))}
+    log("(a) profile " + json.dumps(profiled["a"]))
+
+    # (b) fine-tuning from (a)'s snapshot
+    args = train_sup_2d.add_args(common.base_parser_2d()).parse_args(
+        base + ["--load_hebbian_weights",
+                os.path.join(run_a, "checkpoints", "last.ckpt"),
+                "--regime", "50", "--debug", ""])
+    trainer = train_sup_2d.build(args, make_loaders(items, args, 50))
+    times_b = []
+    raw_step = trainer.train_step
+    trainer.train_step = timed_step(raw_step, times_b)
+    kernels.SWTA_DELTA.launches = 0
+    trainer.run()
+    launches["b"] = kernels.SWTA_DELTA.launches
+    check(all_on(trainer.state.model, on), f"a model tensor is off {on}")
+    losses = ([r["loss"] for r in trainer.train_log.rows]
+              + [r["loss"] for r in trainer.val_log.rows])
+    check(all(np.isfinite(v) for v in losses), f"fine-tune losses {losses}")
+    run_b = trainer.paths.run
+    check(os.path.exists(os.path.join(run_b, "checkpoints", "best_JI.ckpt")),
+          "fine-tuning wrote no best_JI.ckpt")
+    log(f"(b) fine-tune: {len(times_b)} steps, step ms "
+        f"{[round(t, 3) for t in times_b]}, losses {losses}")
+    steady["b"] = steady_step_ms(trainer, raw_step)
+    profiled["b"] = profile_steps(trainer, raw_step,
+                                  float(np.median(steady["b"])))
+    log("(b) profile " + json.dumps(profiled["b"]))
+
+    # (c) test on (b)'s best snapshot
+    args = test_2d.build_parser().parse_args(
+        ["--device", device, "--path_exp", run_b, "--hebbian_pretrain", "1",
+         "-b", str(BATCH), "--num_workers", "4"])
+    from hebbax_torch.config.datasets import dataset_cfg, input_stats
+    from hebbax_torch.data import Loader
+    mean, std = input_stats(dataset_cfg("GlaS"), "image")
+    test_ds = array_dataset_class()(items["val"], mean, std, "test")
+    kernels.SWTA_DELTA.launches = 0
+    metrics = test_2d.run_test(args, Loader(test_ds, BATCH,
+                                            num_workers=4))
+    launches["c"] = kernels.SWTA_DELTA.launches
+    check(metrics is not None and all(np.isfinite(v)
+                                      for v in metrics.values()),
+          f"test metrics {metrics}")
+    check(0.0 <= metrics["segm/dice"] <= 1.0
+          and 0.0 <= metrics["segm/jaccard"] <= 1.0,
+          f"test metrics out of range: {metrics}")
+    log(f"(c) test: Dice {metrics['segm/dice']:.4f} Jaccard "
+        f"{metrics['segm/jaccard']:.4f} HD95 {metrics['segm/95hd']:.3f} "
+        f"ASSD {metrics['segm/asd']:.3f} at threshold {metrics['thresh']}")
+    log("main_path " + json.dumps({
+        "launches": launches, "steps": {"a": steps_a, "b": len(times_b)},
+        "step_ms": {"a": times_a, "b": times_b},
+        "steady_step_ms": {k: {"median": float(np.median(v)),
+                               "min": min(v), "max": max(v)}
+                           for k, v in steady.items()},
+        "test": metrics}))
+    return launches
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an "
+              "NVIDIA card", file=sys.stderr)
+        return 2
+    from hebbax_torch import build
+    from hebbax_torch.cli.common import resolve_device
+
+    device = resolve_device("0")          # TF32 off for cuDNN and matmul
+    torch.manual_seed(0)
+
+    t0 = time.perf_counter()
+    built = build.build()
+    log(f"build: {time.perf_counter() - t0:.2f} s for "
+        f"{sorted(build.LIBRARIES)} (compiled now: {sorted(built)})")
+    for name, info in built.items():
+        log(f"--- nvcc {name} ({info['seconds']:.2f} s)\n{info['log']}")
+
+    items = synth_items(N_TRAIN, N_VAL, SIZE)
+    from hebbax_torch.config.datasets import dataset_cfg, input_stats
+    from hebbax_torch.data.augment2d import normalize
+    mean, std = input_stats(dataset_cfg("GlaS"), "image")
+    images = torch.from_numpy(np.stack(
+        [normalize(img, mean, std) for _, img, _ in
+         items["train"][:BATCH]])).permute(0, 3, 1, 2).contiguous().to(
+        device)
+
+    rows = phase_sites(device, images)
+    phase_small_reference(device)
+    launches = phase_main_path(items)
+
+    from hebbax_torch.hebb.kernels import SwtaDeltaKernel
+    total = {key: sum(r[key] for r in rows)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    ops_ms = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    kernels_line = {"kernels": [{
+        "name": SwtaDeltaKernel.name,
+        "route": "cuda",
+        "source": SwtaDeltaKernel.source,
+        "replaces": "hebbax/hebb/pallas_kernels.py:93",
+        "launches": launches["a"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": total["ms"],
+        "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": ("operations" if ops_ms >= total["bound_ms"] / 2
+                     else "bytes"),
+        "library_ms": total["library_ms"],
+        "sites": len(rows),
+        "shapes": [r["shape"] for r in rows],
+    }]}
+    print(json.dumps(kernels_line), flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", f"--id={device.index or 0}"],
+        capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,23 @@
+"""hebbax_torch — the PyTorch/CUDA port of hebbax for one NVIDIA H100.
+
+Same layout as ``hebbax`` so each module's counterpart is easy to find:
+
+  config/   dataset constants, warmup+StepLR schedule, optimizers
+  data/     2D folder dataset, numpy augmentations, threaded loader
+  hebb/     HebbSpec, the swta rule, the SWTA-delta kernel dispatcher,
+            HConv, gradient merging
+  csrc/     hand-written CUDA kernels (built with nvcc at first use)
+  models/   UNet2D and its blocks, the network registry
+  ops/      losses, threshold-sweep metrics, HD95/ASSD, dropout
+  engine/   train state, train/eval steps, the epoch harness
+  utils/    seeding, run dirs, logging sinks, PNG writer, HBAXCKP1 snapshots
+  cli/      ``python -m hebbax_torch.cli.<name>`` entry points
+  bridge.py parameter map between a flax variable tree and a state_dict
+
+The port imports torch, numpy and scipy only: no jax, flax, optax and
+nothing of ``hebbax``.  Activations are NCHW and conv weights
+``(O, I, kh, kw)``; snapshots are hebbax's own ``HBAXCKP1`` files, so a
+snapshot crosses between the two packages in both directions.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,171 @@
+"""Shared CLI plumbing for the 2D trainers (``hebbax/cli/common.py``): the
+argparse surface, device resolution, dataset/loader assembly, the model
+with the pretrain -> fine-tune hand-off, and the optimizer/schedule stack.
+
+``--device`` takes ``0`` (the default, ``cuda:0``), another card index, or
+``cpu``.  Without CUDA an entry point raises unless ``cpu`` was asked for.
+On the card TF32 is turned off for convolutions and matmuls, so the card
+computes the float32 that the parity tests check.
+"""
+
+import argparse
+import os
+
+import torch
+
+from ..config.datasets import input_stats
+from ..config.schedules import WarmupStepLR, make_optimizer
+from ..data import Loader, SegDataset2D
+from ..hebb.spec import HebbSpec, is_excluded
+from ..models import get_network
+from ..utils.checkpoint import load_state_dict
+from ..utils.seeding import init_seeds, make_generator
+
+
+def base_parser_2d(defaults=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--device", default="0", type=str,
+                   help="card index (cuda:<n>) or 'cpu'")
+    p.add_argument("--path_root_exp", default="./runs")
+    p.add_argument("--path_dataset", default="data/GlaS")
+    p.add_argument("--dataset_name", default="GlaS")
+    p.add_argument("--input1", default="image")
+    p.add_argument("--regime", default=20, type=int)
+    p.add_argument("-b", "--batch_size", default=2, type=int)
+    p.add_argument("-e", "--num_epochs", default=200, type=int)
+    p.add_argument("-s", "--step_size", default=50, type=int)
+    p.add_argument("--optimizer", default="sgd", type=str)
+    p.add_argument("-l", "--lr", default=0.5, type=float)
+    p.add_argument("-g", "--gamma", default=0.5, type=float)
+    p.add_argument("--loss", default="dice", type=str)
+    p.add_argument("-ds", "--deep_supervision", default=False)
+    p.add_argument("-w", "--warm_up_duration", default=20, type=int)
+    p.add_argument("--momentum", default=0.9, type=float)
+    p.add_argument("--wd", default=-5, type=float)
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("-i", "--display_iter", default=1, type=int)
+    p.add_argument("--validate_iter", default=2, type=int)
+    p.add_argument("-n", "--network", default="unet_s2d", type=str)
+    p.add_argument("--debug", default=True)
+    p.add_argument("--init_weights", default="kaiming", type=str)
+    p.add_argument("--num_workers", default=8, type=int)
+    p.add_argument("--dp_devices", default=1, type=int,
+                   help="data-parallel devices (only 1 is ported)")
+    p.add_argument("--profile_dir", default=None, type=str,
+                   help="not ported yet")
+    p.add_argument("--dtype", default="float32", type=str,
+                   help="model compute dtype: float32 (bfloat16 is not "
+                        "ported yet)")
+    p.add_argument("--resume", default=False, help="not ported yet")
+    p.add_argument("--device_augment", default=False, help="not ported yet")
+    if defaults:
+        p.set_defaults(**defaults)
+    return p
+
+
+def check_ported(args):
+    """Raise NotImplementedError for flags whose path is not ported."""
+    if getattr(args, "dtype", "float32") not in ("float32", "f32"):
+        raise NotImplementedError(
+            f"--dtype {args.dtype} is not ported yet (float32 only)")
+    if getattr(args, "dp_devices", 1) != 1:
+        raise NotImplementedError("--dp_devices != 1 is not ported yet")
+    for flag in ("profile_dir", "resume", "device_augment"):
+        if getattr(args, flag, None):
+            raise NotImplementedError(f"--{flag} is not ported yet")
+
+
+def resolve_device(spec):
+    """'cpu' -> the CPU; an index -> that CUDA card, with TF32 off.
+    Raises when CUDA is missing and the CPU was not asked for."""
+    if str(spec).lower() == "cpu":
+        return torch.device("cpu")
+    index = int(spec)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {spec}: CUDA is not available (pass --device cpu "
+            f"to run on the CPU)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", index)
+    torch.cuda.set_device(device)
+    return device
+
+
+def make_loaders_2d(args, cfg, regime=None):
+    """{'train', 'val'} loaders over ``<path_dataset>/{train,val}``; the
+    train split keeps the labelled files of ``regime``."""
+    mean, std = input_stats(cfg, args.input1)
+    loaders = {}
+    regime = args.regime if regime is None else regime
+    for split in ("train", "val"):
+        ds = SegDataset2D(
+            os.path.join(args.path_dataset, split), args.input1, mean, std,
+            split=split, regime=regime if split == "train" else 100,
+            seed=args.seed)
+        loaders[split] = Loader(
+            ds, args.batch_size, shuffle=(split == "train"),
+            seed=args.seed, num_workers=args.num_workers)
+    return loaders
+
+
+def hebbian_finetune_spec(meta):
+    """HebbSpec for fine-tuning from a Hebbian snapshot: alpha forced to
+    0, so the layers keep only the weight-normalized forward."""
+    hp = dict(meta["hebb_params"])
+    hp["alpha"] = 0.0
+    return HebbSpec.from_dict(hp, exclude=meta.get("excluded_layers") or ())
+
+
+def pretrain_base_network(name):
+    """Folded (s2d) names map to their base for Hebbian pretraining; here
+    both run the same UNet2D, so only the name changes."""
+    base = name.replace("_s2d_batched", "").replace("_s2d", "")
+    from ..models import available_networks
+    return base if base != name and base in available_networks() else name
+
+
+def new_model(args, cfg, device, hebb=None):
+    """The network named by args, initialised from args.seed (on the CPU,
+    so a seed gives the same weights on every device), on ``device``."""
+    return get_network(
+        args.network, cfg["IN_CHANNELS"], cfg["NUM_CLASSES"],
+        init_type=args.init_weights, hebb=hebb, device=device,
+        generator=make_generator(args.seed),
+        dropout_generator=make_generator(args.seed + 1, device))
+
+
+def build_model_2d(args, cfg, device, load_hebbian=None, load_weights=None):
+    """Model + the pretrain -> fine-tune hand-off: a Hebbian snapshot
+    loads with alpha forced to 0 and its excluded modules' parameters
+    re-initialised (BN statistics load for every module); a plain
+    snapshot loads with the ``out_conv`` head re-initialised."""
+    init_seeds(args.seed)
+    hebb, state, meta = None, None, None
+    if load_hebbian:
+        state, meta = load_state_dict(load_hebbian)
+        hebb = hebbian_finetune_spec(meta)
+    elif load_weights:
+        state, _ = load_state_dict(load_weights)
+    model = new_model(args, cfg, device, hebb)
+    if state is not None:
+        exclude = hebb.exclude if hebb is not None else ("out_conv",)
+        param_names = {n for n, _ in model.named_parameters()}
+        keep = {n: t for n, t in state.items()
+                if not (n in param_names and is_excluded(
+                    tuple(n.rsplit(".", 1)[0].split(".")), exclude))}
+        merged = dict(model.state_dict())
+        merged.update(keep)
+        model.load_state_dict(merged)
+    return model, hebb
+
+
+def build_optimizer(args, params, steps_per_epoch):
+    """Optimizer over ``params`` + warmup/step schedule over optimizer
+    steps; weight decay 5*10**wd for SGD only."""
+    schedule = WarmupStepLR(args.lr, warmup=args.warm_up_duration,
+                            step_size=args.step_size, gamma=args.gamma,
+                            steps_per_epoch=steps_per_epoch)
+    wd = 5 * 10 ** args.wd if args.optimizer == "sgd" else 0.0
+    return make_optimizer(args.optimizer, params, momentum=args.momentum,
+                          weight_decay=wd), schedule

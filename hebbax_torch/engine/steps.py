@@ -1,0 +1,92 @@
+"""Train and eval steps (``hebbax/engine/steps.py``).
+
+A step takes a batch already on the model's device (NCHW images, int64
+masks), runs one training forward — which also computes the Hebbian
+deltas of the converted convs — and updates the model in place:
+
+  grads = backprop grads (all trainable params, or only the head under
+          ``backprop_only``)
+  grads[kernel] = (1 - alpha) * grads[kernel] - alpha * delta   (alpha!=0)
+  lr = schedule(step); optimizer.step()
+
+The optimizer holds exactly the trainable parameters.  Like optax, it sees
+a zero gradient (not a skipped one) for a trainable parameter no gradient
+reached, so Adam's and SGD's moments decay the same way.
+"""
+
+import torch
+
+from ..hebb.spec import is_excluded
+from ..hebb.surgery import merge_hebbian_grads, pop_deltas
+from ..models.registry import primary_logits
+
+
+def _module_path(param_name):
+    return tuple(param_name.rsplit(".", 1)[0].split("."))
+
+
+def make_sup_train_step(model, network: str, criterion,
+                        hebb_alpha: float = 0.0, backprop_only=None):
+    """Supervised (or Hebbian pretraining) step ``(state, batch) ->
+    (state, {'loss', 'logits'})``.
+
+    backprop_only: module-path prefixes (the Hebbian ``exclude`` head
+    names).  When set, only the parameters under them are differentiated
+    (``torch.autograd.grad`` over the head) and every other parameter has
+    ``requires_grad`` off, so the trunk records no backward graph — the
+    same result as the full backward at alpha=1, where every converted
+    kernel's backprop grad is scaled by 0.  When it matches no module the
+    backward is skipped and the loss is still reported.
+    """
+    params = dict(model.named_parameters())
+    name_of = {p: n for n, p in params.items()}
+    if backprop_only:
+        heads = tuple(backprop_only)
+        diff = [n for n in params if is_excluded(_module_path(n), heads)]
+        for n, p in params.items():
+            p.requires_grad_(n in diff)
+    else:
+        diff = [n for n, p in params.items() if p.requires_grad]
+
+    def step(state, batch):
+        model.train()
+        pop_deltas(model)
+        logits = primary_logits(network, model(batch["image"]))
+        loss = criterion(logits, batch["mask"])
+        deltas = pop_deltas(model)
+        grads = {}
+        if diff:
+            gs = torch.autograd.grad(loss, [params[n] for n in diff])
+            grads = dict(zip(diff, gs))
+        if hebb_alpha:
+            grads = merge_hebbian_grads(params, grads, deltas, hebb_alpha)
+        lr = state.schedule(state.step)
+        groups = state.optimizer.param_groups
+        for group in groups:
+            group["lr"] = lr
+            for p in group["params"]:
+                g = grads.get(name_of[p])
+                p.grad = torch.zeros_like(p) if g is None else g
+        state.optimizer.step()
+        for group in groups:
+            for p in group["params"]:
+                p.grad = None
+        state.step += 1
+        return state, {"loss": loss.detach(), "logits": logits.detach()}
+
+    return step
+
+
+def make_eval_step(model, network: str, criterion=None):
+    """Inference step ``batch -> {'logits'[, 'loss']}`` in eval mode."""
+
+    def step(batch):
+        model.eval()
+        with torch.no_grad():
+            logits = primary_logits(network, model(batch["image"]))
+            out = {"logits": logits}
+            if criterion is not None and "mask" in batch:
+                out["loss"] = criterion(logits, batch["mask"])
+        return out
+
+    return step

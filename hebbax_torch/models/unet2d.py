@@ -1,0 +1,174 @@
+"""2D UNet (``hebbax/models/unet2d.py``), NCHW, with the same module names
+as hebbax so the parameter map to the flax tree is mechanical.
+
+* Encoder: ConvBlockLeaky(in->16, p=.05) then 4x [maxpool2 +
+  ConvBlockLeaky] with channels [32,64,128,256], dropout [.1,.2,.3,.5].
+* Decoder: 4 UpBlocks, each = 1x1 conv + bilinear(align_corners=True) 2x
+  upsample + concat(skip, up) + two conv3x3-BN-ReLU (no transpose convs).
+* Head: MLPHead, three 3x3 convs with ReLU+Dropout(0.5) (hebbax's
+  linear_probe / multiple_layers variants wait for the networks that use
+  them).
+
+Every conv is an HConv; a HebbSpec passed to the model makes the
+non-excluded ones Hebbian.  ``generator`` (CPU) draws the initial
+parameters, so a seed gives the same model on every device;
+``dropout_generator`` (on the model's device) draws the dropout masks.
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..hebb.layers import HConv, bind_paths
+from ..hebb.spec import HebbSpec
+from ..ops.dropout import Dropout
+from .common import BatchNorm2d, max_pool, resize_linear_align_corners
+
+FEATURES = (16, 32, 64, 128, 256)
+ENC_DROPOUT = (0.05, 0.1, 0.2, 0.3, 0.5)
+
+
+class ConvBlockLeaky(nn.Module):
+    """conv3-BN-LeakyReLU-Dropout(p)-conv3-BN-LeakyReLU."""
+
+    def __init__(self, in_ch, features, dropout_p, init_type="kaiming",
+                 device=None, generator=None, dropout_generator=None):
+        super().__init__()
+        kw = dict(kernel_size=3, padding=1, init_type=init_type,
+                  device=device, generator=generator)
+        self.conv1 = HConv(in_ch, features, **kw)
+        self.bn1 = BatchNorm2d(features, device=device,
+                               generator=generator)
+        self.dropout = Dropout(dropout_p, dropout_generator)
+        self.conv2 = HConv(features, features, **kw)
+        self.bn2 = BatchNorm2d(features, device=device,
+                               generator=generator)
+
+    def forward(self, x):
+        x = F.leaky_relu(self.bn1(self.conv1(x)))
+        x = self.dropout(x)
+        return F.leaky_relu(self.bn2(self.conv2(x)))
+
+
+class ConvBlockReLU(nn.Module):
+    """conv3-BN-ReLU x2 (the decoder's ConvBlock)."""
+
+    def __init__(self, in_ch, features, init_type="kaiming", device=None,
+                 generator=None):
+        super().__init__()
+        kw = dict(kernel_size=3, padding=1, init_type=init_type,
+                  device=device, generator=generator)
+        self.conv1 = HConv(in_ch, features, **kw)
+        self.bn1 = BatchNorm2d(features, device=device,
+                               generator=generator)
+        self.conv2 = HConv(features, features, **kw)
+        self.bn2 = BatchNorm2d(features, device=device,
+                               generator=generator)
+
+    def forward(self, x):
+        x = F.relu(self.bn1(self.conv1(x)))
+        return F.relu(self.bn2(self.conv2(x)))
+
+
+class Encoder2D(nn.Module):
+    """5-feature encoder; returns the 5 feature maps."""
+
+    def __init__(self, in_channels, init_type="kaiming", device=None,
+                 generator=None, dropout_generator=None):
+        super().__init__()
+        kw = dict(init_type=init_type, device=device, generator=generator,
+                  dropout_generator=dropout_generator)
+        self.in_conv = ConvBlockLeaky(in_channels, FEATURES[0],
+                                      ENC_DROPOUT[0], **kw)
+        for i in range(1, 5):
+            setattr(self, f"down{i}",
+                    ConvBlockLeaky(FEATURES[i - 1], FEATURES[i],
+                                   ENC_DROPOUT[i], **kw))
+
+    def forward(self, x):
+        x = self.in_conv(x)
+        feats = [x]
+        for i in range(1, 5):
+            x = getattr(self, f"down{i}")(max_pool(x))
+            feats.append(x)
+        return feats
+
+
+class UpBlock2D(nn.Module):
+    """1x1 conv + bilinear(align_corners) up + concat(skip, up) +
+    ConvBlockReLU."""
+
+    def __init__(self, in_ch, skip_ch, mid, out, init_type="kaiming",
+                 device=None, generator=None):
+        super().__init__()
+        self.conv1x1 = HConv(in_ch, mid, kernel_size=1, init_type=init_type,
+                             device=device, generator=generator)
+        self.conv = ConvBlockReLU(skip_ch + mid, out, init_type=init_type,
+                                  device=device, generator=generator)
+
+    def forward(self, x1, x2):
+        x1 = self.conv1x1(x1)
+        x1 = resize_linear_align_corners(x1, x2.shape[2:])
+        return self.conv(torch.cat([x2, x1], dim=1))
+
+
+class Decoder2D(nn.Module):
+    """4 UpBlocks from the bottleneck back to full resolution."""
+
+    def __init__(self, init_type="kaiming", device=None, generator=None):
+        super().__init__()
+        kw = dict(init_type=init_type, device=device, generator=generator)
+        f = FEATURES
+        self.up1 = UpBlock2D(f[4], f[3], f[3], f[3], **kw)
+        self.up2 = UpBlock2D(f[3], f[2], f[2], f[2], **kw)
+        self.up3 = UpBlock2D(f[2], f[1], f[1], f[1], **kw)
+        self.up4 = UpBlock2D(f[1], f[0], f[0], f[0], **kw)
+
+    def forward(self, feats):
+        x0, x1, x2, x3, x4 = feats
+        x = self.up1(x4, x3)
+        x = self.up2(x, x2)
+        x = self.up3(x, x1)
+        return self.up4(x, x0)
+
+
+class MLPHead(nn.Module):
+    """3-conv segmentation head with ReLU+Dropout(0.5)."""
+
+    def __init__(self, in_ch, n_cls, init_type="kaiming", device=None,
+                 generator=None, dropout_generator=None):
+        super().__init__()
+        kw = dict(kernel_size=3, padding=1, init_type=init_type,
+                  device=device, generator=generator)
+        self.conv1 = HConv(in_ch, in_ch * 4, **kw)
+        self.dropout1 = Dropout(0.5, dropout_generator)
+        self.conv2 = HConv(in_ch * 4, in_ch * 2, **kw)
+        self.dropout2 = Dropout(0.5, dropout_generator)
+        self.conv_out = HConv(in_ch * 2, n_cls, **kw)
+
+    def forward(self, x):
+        x = self.dropout1(F.relu(self.conv1(x)))
+        x = self.dropout2(F.relu(self.conv2(x)))
+        return self.conv_out(x)
+
+
+class UNet2D(nn.Module):
+    """The flagship 2D model (UNet_Transposed_Leaky)."""
+
+    def __init__(self, in_channels: int, n_cls: int,
+                 hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
+                 device=None, generator=None, dropout_generator=None):
+        super().__init__()
+        kw = dict(init_type=init_type, device=device, generator=generator)
+        self.encoder = Encoder2D(in_channels,
+                                 dropout_generator=dropout_generator, **kw)
+        self.main_decoder = Decoder2D(**kw)
+        self.out_conv = MLPHead(FEATURES[0], n_cls,
+                                dropout_generator=dropout_generator, **kw)
+        self.hebb = hebb
+        bind_paths(self, hebb)
+
+    def forward(self, x):
+        return self.out_conv(self.main_decoder(self.encoder(x)))
