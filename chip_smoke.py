@@ -11,11 +11,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the tensors a real training forward gives the site — hold the SWTA
    delta kernel against its plain PyTorch version (max abs error <=
    1e-4 * max|plain|: float32 sums over up to 5e5 pixels taken in another
-   order) and time, with CUDA events after warm-up, the kernel, the plain
-   version and one cuDNN composition of the same function (softmax +
-   ``torch.nn.grad.conv2d_weight`` + epilogue, timed only), beside the
-   least time the card could take (bytes over 3.35 TB/s or float32 FLOPs
-   over 67 TFLOP/s, the larger);
+   order, products in 3xTF32), require two launches on the same tensors
+   to be equal to the bit, and time, with CUDA events after warm-up, the
+   kernel, the plain version and one cuDNN composition of the same
+   function (softmax + ``torch.nn.grad.conv2d_weight`` + epilogue, timed
+   only), beside three bounds: bytes over 3.35 TB/s, the FLOPs over the
+   float32 SIMT peak (67 TFLOP/s), and three times the FLOPs over the
+   TF32 tensor-core peak (495 TFLOP/s).  The kernel's bound is the larger
+   of bytes and tensor-core time: the arithmetic it really does;
 3. on a small input (batch 2, 32x32), a training forward on the card
    (kernel) against the same weights on the CPU (plain version): logits
    and all 22 deltas;
@@ -50,6 +53,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(ROOT, "build", "chip_smoke")
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12     # H100 SXM float32, no tensor cores
+PEAK_TF32_FLOP_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
+TF32_PASSES = 3                 # 3xTF32: hi*hi + hi*lo + lo*hi
 BATCH, SIZE, N_TRAIN, N_VAL = 32, 128, 64, 16
 K_TEMP = 50.0
 TOL = 1e-4                      # max abs error / max |plain|
@@ -144,14 +149,20 @@ def cuda_time_ms(fn, warmup=2, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def bound(n, i, h, w, o, k):
-    """(bound_ms, bound_by) of one SWTA delta: each input read once, the
-    output written once; 2*P*M*O float32 operations."""
+def bounds(n, i, h, w, o, k):
+    """Bounds (ms) of one SWTA delta: ``bytes`` (each input read once,
+    the output written once), ``f32`` (2*P*M*O operations on the float32
+    SIMT units), ``tc`` (the same operations three times on the TF32
+    tensor cores); ``ms`` and ``by`` for the kernel's own arithmetic,
+    3xTF32: the larger of bytes and tc."""
     p, m = n * h * w, i * k * k
-    t_bytes = 4.0 * (p * (i + o) + 2 * m * o) / PEAK_BYTES_PER_S
-    t_ops = 2.0 * p * m * o / PEAK_F32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
-                                       else "operations")
+    ops = 2.0 * p * m * o
+    t_bytes = 4.0 * (p * (i + o) + 2 * m * o) / PEAK_BYTES_PER_S * 1e3
+    t_f32 = ops / PEAK_F32_FLOP_PER_S * 1e3
+    t_tc = TF32_PASSES * ops / PEAK_TF32_FLOP_PER_S * 1e3
+    return {"bytes": t_bytes, "f32": t_f32, "tc": t_tc,
+            "ms": max(t_bytes, t_tc),
+            "by": "bytes" if t_bytes > t_tc else "operations"}
 
 
 def library_delta(w, x, y, k, pad):
@@ -206,7 +217,7 @@ def phase_sites(device, images):
     rows = []
     log(f"{'site':36s} {'N,I,H,W,O,k':>22s} {'err/max':>9s} "
         f"{'kernel_ms':>9s} {'plain_ms':>9s} {'library_ms':>10s} "
-        f"{'bound_ms':>9s}")
+        f"{'tc_ms':>7s} {'f32_ms':>7s} {'byte_ms':>7s} {'share':>6s}")
     for name, w, x, y, pad in sites:
         n, i, h, wd = x.shape
         o, k = w.shape[0], w.shape[2]
@@ -218,18 +229,24 @@ def phase_sites(device, images):
         check(np.isfinite(err) and err <= TOL * scale,
               f"{name}: kernel vs plain max abs error {err} > "
               f"{TOL} * {scale}")
+        again = kernels.SWTA_DELTA(w, x, y, K_TEMP, pad)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again),
+              f"{name}: two launches on the same tensors differ")
         k_ms = cuda_time_ms(lambda: kernels.SWTA_DELTA(w, x, y, K_TEMP, pad))
         p_ms = cuda_time_ms(lambda: rules.swta_conv_delta(w, x, y, K_TEMP,
                                                           pad))
         l_ms = cuda_time_ms(lambda: library_delta(w, x, y, K_TEMP, pad))
-        b_ms, b_by = bound(n, i, h, wd, o, k)
+        b = bounds(n, i, h, wd, o, k)
         rows.append(dict(site=name, shape=[n, i, h, wd, o, k],
                          max_abs_err=err, rel_err=err / scale, ms=k_ms,
-                         plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                         bound_by=b_by))
+                         plain_ms=p_ms, library_ms=l_ms, bound_ms=b["ms"],
+                         bound_by=b["by"], bound_tc_ms=b["tc"],
+                         bound_f32_ms=b["f32"], bound_bytes_ms=b["bytes"]))
         log(f"{name:36s} {str((n, i, h, wd, o, k)):>22s} "
             f"{err / scale:9.2e} {k_ms:9.4f} {p_ms:9.4f} {l_ms:10.4f} "
-            f"{b_ms:9.4f}")
+            f"{b['tc']:7.4f} {b['f32']:7.4f} {b['bytes']:7.4f} "
+            f"{b['ms'] / k_ms:6.1%}")
     log("sites " + json.dumps(rows))
     return rows
 
@@ -496,7 +513,8 @@ def main():
 
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_tc_ms", "bound_f32_ms", "bound_bytes_ms")}
     ops_ms = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
     kernels_line = {"kernels": [{
         "name": SwtaDeltaKernel.name,
@@ -511,6 +529,10 @@ def main():
         "bound_by": ("operations" if ops_ms >= total["bound_ms"] / 2
                      else "bytes"),
         "library_ms": total["library_ms"],
+        "arith": "3xtf32",
+        "bound_tc_ms": total["bound_tc_ms"],
+        "bound_f32_ms": total["bound_f32_ms"],
+        "bound_bytes_ms": total["bound_bytes_ms"],
         "sites": len(rows),
         "shapes": [r["shape"] for r in rows],
     }]}

@@ -14,14 +14,33 @@ stream, raises on a launch error, and counts its launches.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import rules
 
-_TP = 16            # pixels per shared-memory stage in the kernel
-_MAX_O = 512        # the kernel stages all O channels of 16 pixels in smem
-_BLOCKS_PER_SM = 8  # pixel ranges are chosen to give about this many blocks
+_KP = 32            # pixels per stage: the K depth of a stage in the kernel
+_MAX_O = 512        # every O channel of a stage is staged in shared memory
+_MAX_SMEM = 232448  # dynamic shared memory a block may use (H100)
+_SM_SMEM = 233472   # shared memory of one SM
+_WAVES = 1          # pixel ranges are chosen to fill about this many waves
+_WORKSPACE = 64 * 2 ** 20   # bytes of partials at most
+
+
+class Plan(NamedTuple):
+    """Tile and split of one launch: ``nwg`` the wgmma width (8..128),
+    ``wm``/``wn`` the warpgroups along M/N, ``halo`` whether x is staged
+    as rows with a margin (16-byte copies) rather than gathered per patch
+    element, ``smem`` the block's dynamic shared memory in bytes, and the
+    pixel ranges."""
+    nwg: int
+    wm: int
+    wn: int
+    halo: bool
+    smem: int
+    ranges: int
+    range_len: int
 
 
 class SwtaDeltaKernel:
@@ -40,7 +59,8 @@ class SwtaDeltaKernel:
             fn = build.load("swta_delta").hebbax_swta_delta_f32
             fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                            + [ctypes.c_float, ctypes.c_int,
-                              ctypes.c_longlong, ctypes.c_void_p])
+                              ctypes.c_longlong] + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
@@ -72,36 +92,97 @@ class SwtaDeltaKernel:
             raise ValueError(f"O={o} exceeds the kernel's limit {_MAX_O}")
         if n * h * wd == 0:
             raise ValueError("empty input")
+        if i * h * wd >= 2 ** 31 or n * h * wd >= 2 ** 30:
+            raise ValueError("x is too large for the kernel's 32-bit "
+                             "pixel and image indices")
 
     @staticmethod
-    def plan(p, m, o, sm_count):
-        """(ranges, range_len): pixel ranges for about _BLOCKS_PER_SM
-        blocks per SM, each a whole number of 16-pixel stages."""
-        tiles = -(-m // 64) * -(-o // (16 if o <= 16 else 32 if o <= 32
-                                       else 64))
-        stages = -(-p // _TP)
-        ranges = max(1, min(stages, -(-_BLOCKS_PER_SM * sm_count // tiles)))
-        range_len = -(-stages // ranges) * _TP
-        return -(-p // range_len), range_len
+    def tile(m, o):
+        """(nwg, wm, wn): the block tile for M = m, O = o.  One
+        warpgroup per 64 rows of M (two where 128-row tiles pad M no more
+        than 64-row tiles do) by all O channels rounded up to a wgmma
+        width; 128 < O <= 256 takes two warpgroups along N; O > 256 goes
+        in chunks of 128."""
+        n = -(-o // 8) * 8
+        if n <= 128:
+            nwg = next(w for w in (8, 16, 32, 64, 128) if w >= n)
+            wm = 2 if m > 64 and (m % 128 == 0 or m % 128 > 64) else 1
+            return nwg, wm, 1
+        if n <= 256:
+            return 128, 1, 2
+        return 128, 1, 1
+
+    @staticmethod
+    def halo(h, wd, pw, aligned=True):
+        """Whether the kernel can stage x as rows with a 4-column margin:
+        W a multiple of 4, taps at most 4 columns off, a stage's 32 pixels
+        the aligned segment of one row or whole rows of one image, and x
+        and y 16-byte aligned."""
+        return (aligned and wd % 4 == 0 and pw <= 4
+                and (wd % _KP == 0 or (_KP % wd == 0 and h * wd % _KP == 0)))
+
+    @staticmethod
+    def x_slot(bm, i, wd, kh, kw, halo):
+        """Floats of one stage of x in shared memory (the kernel's
+        ``Shape::x_slot``): the rows of the channels that bm patch rows
+        touch, with the margin, or bm gathered rows of 32 pixels."""
+        if not halo:
+            return bm * _KP
+        wt = min(wd, _KP)
+        n_ch = min(i, (bm - 1) // (kh * kw) + 2)
+        return n_ch * (_KP // wt + kh - 1) * (wt + 8)
+
+    @staticmethod
+    def smem_bytes(o, nwg, wm, wn, x_slot):
+        """Dynamic shared memory of one block (``Tile::smem_bytes`` in
+        the kernel): the raw y and x ring of two stages, the hi/lo B
+        operands with padded K-chunks, and the row table."""
+        bm, nb, nw = 64 * wm, nwg * wn, 4 * wm * wn
+        ys = _KP + 32 // nw     # padded channel row of y
+        op_b = _KP // 4 * (nb * 4 + 4)
+        return 4 * (2 * (o * ys + x_slot) + 2 * op_b + 4 * bm)
+
+    @classmethod
+    def plan(cls, n, i, h, wd, o, kh, kw, sm_count, aligned=True):
+        """The :class:`Plan` of a launch: the tile, and pixel ranges, each
+        a whole number of 32-pixel stages, for about _WAVES waves of
+        blocks over the SMs, with at most _WORKSPACE bytes of partials."""
+        p, m = n * h * wd, i * kh * kw
+        nwg, wm, wn = cls.tile(m, o)
+        halo = cls.halo(h, wd, (kw - 1) // 2, aligned)
+        smem = cls.smem_bytes(o, nwg, wm, wn,
+                              cls.x_slot(64 * wm, i, wd, kh, kw, halo))
+        per_sm = max(1, min(_SM_SMEM // (smem + 1024),
+                            2048 // (128 * wm * wn)))
+        tiles = -(-m // (64 * wm)) * -(-o // (nwg * wn))
+        n_stages = -(-p // _KP)
+        ranges = -(-_WAVES * sm_count * per_sm // tiles)
+        ranges = max(1, min(n_stages, ranges, _WORKSPACE // (4 * m * o)))
+        range_len = -(-n_stages // ranges) * _KP
+        return Plan(nwg, wm, wn, halo, smem, -(-p // range_len),
+                    range_len)
 
     def __call__(self, w, x, y, k, padding):
         self.check(w, x, y, padding)
         o, i, kh, kw = w.shape
         n, _, h, wd = x.shape
-        m, p = i * kh * kw, n * h * wd
+        m = i * kh * kw
         dev = x.device
         sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-        ranges, range_len = self.plan(p, m, o, sm_count)
+        aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+        pl = self.plan(n, i, h, wd, o, kh, kw, sm_count, aligned)
         delta = torch.empty_like(w)
-        part = torch.empty((ranges, o, m), dtype=torch.float32, device=dev)
-        rsum = torch.empty((ranges, o), dtype=torch.float32, device=dev)
+        part = torch.empty((pl.ranges, o, m), dtype=torch.float32,
+                           device=dev)
+        rsum = torch.empty((pl.ranges, o), dtype=torch.float32, device=dev)
         fn = self._entry()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = fn(x.data_ptr(), y.data_ptr(), w.data_ptr(),
                     delta.data_ptr(), part.data_ptr(), rsum.data_ptr(),
                     n, i, h, wd, o, kh, kw, padding[0], padding[1],
-                    float(k), ranges, range_len, stream)
+                    float(k), pl.ranges, pl.range_len, pl.nwg, pl.wm,
+                    pl.wn, int(pl.halo), stream)
         if rc != 0:
             raise RuntimeError(f"swta_delta kernel launch failed: CUDA "
                                f"error {rc}")
