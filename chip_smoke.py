@@ -33,8 +33,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    its count was read, 10 more steps on one batch give the steady step
    time, and 3 steps under ``torch.profiler`` the device time by kernel
    class;
-5. print the ``{"kernels": [...]}`` line, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+   before 4, at batch 2, 32x32, a training forward of ``unet_urpc`` and
+   ``unet_cct`` on the card against the CPU, as in 3 (CCT with the same
+   perturbation draws on both; 22 and 58 launches);
+5. the semi-supervised family on the same data, each path with its
+   launch count zeroed just before and read just after, and then timed
+   like (a) and (b): (d) ``pretrain_hebbian_unsup_2d`` of ``unet_urpc``
+   (its four heads excluded) and ``unet_cct`` (``out_conv`` excluded),
+   flags as (a), which must launch the kernel 22 and 58 times per step
+   (CCT's shared decoder runs four times per forward), leave the Hebbian
+   kernels unchanged in epoch 0 and change them in epoch 1; (e)
+   ``train_semi_2d`` em / uamt / cps on ``unet`` from (a)'s last.ckpt and
+   urpc / cct from (d)'s, regime 50, with the sweep's flags (SGD, lr 0.5,
+   dice, unsup weight 5, validation every epoch), 2 epochs, warmup 1:
+   no kernel launch (alpha 0), finite losses, best_JI.ckpt written, and
+   for uamt / cps checkpoints2/last.ckpt, both models moved and model 2
+   unlike model 1; (f) ``test_2d --hebbian_pretrain 1`` on each (e) run's
+   best_JI.ckpt: finite metrics in range;
+6. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
+   urpc_pretrain, cct_pretrain), the card's name and power limit, and
+   last ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
 and writes only under ``build/`` beside this file.
@@ -133,6 +151,28 @@ def make_loaders(items, args, regime):
                             seed=args.seed, num_workers=args.num_workers),
             "val": Loader(val, args.batch_size, shuffle=False,
                           num_workers=args.num_workers)}
+
+
+def make_semi_loaders(items, args, regime):
+    """{'train_sup', 'train_unsup', 'val'}: the labelled files of
+    ``regime``, their unlabelled complement (no masks), the val split."""
+    from hebbax_torch.config.datasets import dataset_cfg, input_stats
+    from hebbax_torch.data import Loader
+
+    ds_cls = array_dataset_class()
+    mean, std = input_stats(dataset_cfg(args.dataset_name), args.input1)
+    kw = dict(shuffle=True, seed=args.seed, num_workers=args.num_workers)
+    return {
+        "train_sup": Loader(ds_cls(items["train"], mean, std, "train",
+                                   regime=regime, seed=args.seed),
+                            args.batch_size, **kw),
+        "train_unsup": Loader(ds_cls(items["train"], mean, std, "train",
+                                     sup=False, regime=regime,
+                                     seed=args.seed),
+                              args.batch_size, **kw),
+        "val": Loader(ds_cls(items["val"], mean, std, "val", seed=args.seed),
+                      args.batch_size, shuffle=False,
+                      num_workers=args.num_workers)}
 
 
 def cuda_time_ms(fn, warmup=2, iters=10):
@@ -291,10 +331,10 @@ def phase_small_reference(device):
 def timed_step(step, times, watch=None, snapshots=None):
     import torch
 
-    def wrapped(state, batch):
+    def wrapped(state, *batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, out = step(state, batch)
+        state, out = step(state, *batches)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         if watch is not None:
@@ -304,18 +344,37 @@ def timed_step(step, times, watch=None, snapshots=None):
     return wrapped
 
 
+def step_runner(trainer, step):
+    """A closure running one more train step of ``trainer`` through the
+    unwrapped ``step`` on fixed batches: its first train batch, and for a
+    semi trainer the next unlabelled batch, at the last epoch's weight."""
+    sup = trainer.prep(next(iter(trainer.loaders[trainer.train_key])))
+    if not hasattr(trainer, "next_unsup"):
+        def run():
+            trainer.state, _ = step(trainer.state, sup)
+        return run
+    unsup = trainer.prep(trainer.next_unsup())
+    epoch = trainer.args.num_epochs - 1
+    w = trainer.epoch_weight(epoch)
+
+    def run():
+        trainer.train_step = step
+        trainer.state, _ = trainer.call_step(sup, unsup, w, epoch)
+    return run
+
+
 def steady_step_ms(trainer, step, n=10):
-    """Host times (ms) of n more train steps on one batch, each ended by a
-    synchronize, after the run's own steps warmed up cuDNN and the
-    allocator.  Made after the main path's launch count was read."""
+    """Host times (ms) of n more train steps on fixed batches, each ended
+    by a synchronize, after the run's own steps warmed up cuDNN and the
+    allocator.  Made after the path's launch count was read."""
     import torch
 
-    batch = trainer.prep(next(iter(trainer.loaders["train"])))
+    run = step_runner(trainer, step)
     times = []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.state, _ = step(trainer.state, batch)
+        run()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return times
@@ -334,19 +393,19 @@ def kernel_group(name):
 
 
 def profile_steps(trainer, step, steady_ms, n=3):
-    """torch.profiler over n train steps on one batch: device time per
+    """torch.profiler over n train steps on fixed batches: device time per
     step by kernel class, its share of the unprofiled step's median host
-    time ``steady_ms``, and the heaviest kernels.  Made after the main
-    path's launch count was read."""
+    time ``steady_ms``, and the heaviest kernels.  Made after the path's
+    launch count was read."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    batch = trainer.prep(next(iter(trainer.loaders["train"])))
+    run = step_runner(trainer, step)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            trainer.state, _ = step(trainer.state, batch)
+            run()
         torch.cuda.synchronize()
     kernels = {}
     for evt in prof.key_averages():
@@ -381,9 +440,7 @@ def phase_main_path(items, device="0"):
 
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     on = "cpu" if device == "cpu" else "cuda"
-    base = ["--device", device, "--path_dataset", "synthetic/GlaS",
-            "--dataset_name", "GlaS", "--path_root_exp", RUN_DIR,
-            "-b", str(BATCH), "-e", "2", "-w", "1", "--num_workers", "4"]
+    base = cli_base(device)
     launches = {}
 
     # (a) Hebbian pretraining
@@ -411,9 +468,8 @@ def phase_main_path(items, device="0"):
     check(not torch.equal(snaps[-1], w0),
           "the Hebbian kernels did not change in epoch 1")
     check(all_on(trainer.state.model, on), f"a model tensor is off {on}")
-    losses = ([r["loss"] for r in trainer.train_log.rows]
-              + [r["loss"] for r in trainer.val_log.rows])
-    check(all(np.isfinite(v) for v in losses), f"pretrain losses {losses}")
+    losses, ok = finite_losses(trainer)
+    check(ok, f"pretrain losses {losses}")
     run_a = trainer.paths.run
     log(f"(a) pretrain: {steps_a} steps, kernel launches {launches['a']}, "
         f"step ms {[round(t, 3) for t in times_a]}, losses {losses}")
@@ -435,9 +491,8 @@ def phase_main_path(items, device="0"):
     trainer.run()
     launches["b"] = kernels.SWTA_DELTA.launches
     check(all_on(trainer.state.model, on), f"a model tensor is off {on}")
-    losses = ([r["loss"] for r in trainer.train_log.rows]
-              + [r["loss"] for r in trainer.val_log.rows])
-    check(all(np.isfinite(v) for v in losses), f"fine-tune losses {losses}")
+    losses, ok = finite_losses(trainer)
+    check(ok, f"fine-tune losses {losses}")
     run_b = trainer.paths.run
     check(os.path.exists(os.path.join(run_b, "checkpoints", "best_JI.ckpt")),
           "fine-tuning wrote no best_JI.ckpt")
@@ -472,11 +527,231 @@ def phase_main_path(items, device="0"):
     log("main_path " + json.dumps({
         "launches": launches, "steps": {"a": steps_a, "b": len(times_b)},
         "step_ms": {"a": times_a, "b": times_b},
-        "steady_step_ms": {k: {"median": float(np.median(v)),
-                               "min": min(v), "max": max(v)}
-                           for k, v in steady.items()},
+        "steady_step_ms": summary(steady),
         "test": metrics}))
-    return launches
+    return launches, run_a
+
+
+DEEP4 = {"unet_urpc": (("out_conv_dp1", "out_conv_dp2", "out_conv_dp3",
+                        "out_conv"), 22),
+         "unet_cct": (("out_conv",), 58)}
+SEMI = (("em", "unet"), ("uamt", "unet"), ("cps", "unet"),
+        ("urpc", "unet_urpc"), ("cct", "unet_cct"))
+
+
+def cli_base(device):
+    return ["--device", device, "--path_dataset", "synthetic/GlaS",
+            "--dataset_name", "GlaS", "--path_root_exp", RUN_DIR,
+            "-b", str(BATCH), "-e", "2", "-w", "1", "--num_workers", "4"]
+
+
+def finite_losses(trainer):
+    losses = ([r["loss"] for r in trainer.train_log.rows]
+              + [r["loss"] for r in trainer.val_log.rows])
+    return losses, all(np.isfinite(v) for v in losses)
+
+
+def phase_deep4_reference(device):
+    """Training forward of unet_urpc and unet_cct at batch 2, 32x32 on the
+    card (kernel) against the same weights on the CPU (plain version);
+    CCT's perturbations take the same draws on both (drawn on the CPU)."""
+    import torch
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.hebb.spec import HebbSpec
+    from hebbax_torch.hebb.surgery import pop_deltas
+    from hebbax_torch.models import get_network
+    from hebbax_torch.models.common import (CCT_PERTURB_KINDS,
+                                            draw_perturbation)
+    from hebbax_torch.ops.dropout import Dropout
+    from hebbax_torch.utils.seeding import make_generator
+
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 3, 32, 32)).astype(np.float32))
+    for net, (exclude, per_step) in DEEP4.items():
+        spec = HebbSpec(mode="swta_t", k=K_TEMP, exclude=exclude)
+        gpu, cpu = [get_network(net, 3, 2, hebb=spec, device=dev,
+                                generator=make_generator(3))
+                    for dev in (device, "cpu")]
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        for m in (gpu, cpu):
+            for mod in m.modules():
+                if isinstance(mod, Dropout):
+                    mod.p = 0.0         # dropout off: the streams differ
+            m.train()
+        if net == "unet_cct":
+            gen, draws = make_generator(9), {}
+
+            def draw_on_cpu(feats, gen=gen, draws=draws):
+                for kind in CCT_PERTURB_KINDS:
+                    draws[kind] = [draw_perturbation(kind, f, gen)
+                                   for f in feats]
+                return draws
+
+            cpu.draw_perturbations = draw_on_cpu
+            gpu.draw_perturbations = lambda feats, draws=draws: {
+                k: [d.to(device) for d in v] for k, v in draws.items()}
+        with torch.no_grad():
+            out_c = cpu(x)
+            before = kernels.SWTA_DELTA.launches
+            out_g = [o.cpu() for o in gpu(x.to(device))]
+        check(kernels.SWTA_DELTA.launches == before + per_step,
+              f"{net}: the card's training forward did not launch the "
+              f"kernel {per_step} times")
+        dg, dc = pop_deltas(gpu), pop_deltas(cpu)
+        check(set(dg) == set(dc) and len(dg) == 22,
+              f"{net}: delta sites differ")
+        logit_err = max(float((g - c).abs().max())
+                        for g, c in zip(out_g, out_c))
+        check(logit_err <= 1e-4,
+              f"{net}: logits card vs CPU differ by {logit_err}")
+        worst = max(float((dg[n].cpu() - dc[n]).abs().max())
+                    / float(dc[n].abs().max()) for n in dc)
+        check(worst <= 1e-3,
+              f"{net}: deltas card vs CPU differ by {worst} of scale")
+        log(f"small-input reference {net}: 4 outputs max abs diff "
+            f"{logit_err:.3e}, deltas max diff / scale {worst:.3e}, "
+            f"{per_step} launches")
+
+
+def phase_deep4_pretrain(items, device="0"):
+    """(d) Hebbian pretraining of unet_urpc (its four heads excluded) and
+    unet_cct (out_conv excluded), as (a): 22 and 58 launches per step."""
+    import torch
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import pretrain_hebbian_unsup_2d as pretrain
+    from hebbax_torch.hebb import kernels
+
+    on = "cpu" if device == "cpu" else "cuda"
+    launches, snaps, steady, profiled, steps = {}, {}, {}, {}, {}
+    for net, (exclude, per_step) in DEEP4.items():
+        key = net[len("unet_"):] + "_pretrain"
+        args = pretrain.add_args(common.base_parser_2d()).parse_args(
+            cli_base(device) + [
+                "-n", net, "--exclude", *exclude, "--hebb_mode", "swta_t",
+                "--hebb_inv_temp", str(int(K_TEMP)), "--optimizer", "adam",
+                "-l", "1e-6", "--debug", ""])
+        trainer = pretrain.build(args, make_loaders(items, args, 100))
+        watch = "encoder.in_conv.conv2.weight"
+        w0 = trainer.state.model.state_dict()[watch].detach().clone()
+        times, snapshots = [], []
+        raw_step = trainer.train_step
+        trainer.train_step = timed_step(raw_step, times, watch, snapshots)
+        kernels.SWTA_DELTA.launches = 0
+        trainer.run()
+        launches[key] = kernels.SWTA_DELTA.launches
+        steps[key] = len(times)
+        per_epoch = len(trainer.loaders["train"])
+        check(steps[key] == 2 * per_epoch, f"{key} ran {steps[key]} steps")
+        check(launches[key] == per_step * steps[key],
+              f"{key} launched the kernel {launches[key]} times, expected "
+              f"{per_step} x {steps[key]}")
+        check(all(torch.equal(w, w0) for w in snapshots[:per_epoch]),
+              f"{key}: a Hebbian kernel changed in epoch 0 (lr 0)")
+        check(not torch.equal(snapshots[-1], w0),
+              f"{key}: the Hebbian kernels did not change in epoch 1")
+        check(all_on(trainer.state.model, on), f"a model tensor is off {on}")
+        losses, ok = finite_losses(trainer)
+        check(ok, f"{key} losses {losses}")
+        snaps[net] = os.path.join(trainer.paths.checkpoints, "last.ckpt")
+        log(f"(d) {key}: {steps[key]} steps, kernel launches "
+            f"{launches[key]}, step ms {[round(t, 3) for t in times]}, "
+            f"losses {losses}")
+        steady[key] = steady_step_ms(trainer, raw_step)
+        profiled[key] = profile_steps(trainer, raw_step,
+                                      float(np.median(steady[key])))
+        log(f"(d) {key} profile " + json.dumps(profiled[key]))
+    return launches, snaps, steady, steps
+
+
+def phase_semi(items, snaps, device="0"):
+    """(e) train_semi_2d with the sweep's flags, each algorithm from its
+    network's Hebbian snapshot; no kernel launch (alpha 0).  (f) test_2d
+    on each run's best_JI.ckpt."""
+    import torch
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import test_2d
+    from hebbax_torch.cli import train_semi_2d
+    from hebbax_torch.config.datasets import dataset_cfg, input_stats
+    from hebbax_torch.data import Loader
+    from hebbax_torch.hebb import kernels
+
+    on = "cpu" if device == "cpu" else "cuda"
+    watch = "encoder.in_conv.conv1.weight"
+    launches, steady, steps, tests = {}, {}, {}, {}
+    for algo, net in SEMI:
+        args = train_semi_2d.add_args(common.base_parser_2d(), algo)\
+            .parse_args(cli_base(device) + [
+                "-n", net, "--load_hebbian_weights", snaps[net],
+                "--hebb_inv_temp", str(int(K_TEMP)), "--regime", "50",
+                "--optimizer", "sgd", "-l", "0.5", "--loss", "dice",
+                "--unsup_weight", "5", "--validate_iter", "1",
+                "--debug", ""])
+        trainer = train_semi_2d.build(args, algo,
+                                      make_semi_loaders(items, args, 50))
+        dual = algo in ("uamt", "cps")
+        models = ([trainer.state.model1, trainer.state.model2] if dual
+                  else [trainer.state.model])
+        w0 = [m.state_dict()[watch].detach().clone() for m in models]
+        times = []
+        raw_step = trainer.train_step
+        trainer.train_step = timed_step(raw_step, times)
+        kernels.SWTA_DELTA.launches = 0
+        trainer.run()
+        launches[algo] = kernels.SWTA_DELTA.launches
+        steps[algo] = len(times)
+        check(launches[algo] == 0,
+              f"{algo} launched the kernel {launches[algo]} times (alpha 0)")
+        check(all(all_on(m, on) for m in models),
+              f"{algo}: a model tensor is off {on}")
+        losses, ok = finite_losses(trainer)
+        check(ok, f"{algo} losses {losses}")
+        ckpts = trainer.paths.checkpoints
+        check(os.path.exists(os.path.join(ckpts, "best_JI.ckpt")),
+              f"{algo} wrote no best_JI.ckpt")
+        w1 = [m.state_dict()[watch] for m in models]
+        check(not torch.equal(w1[0], w0[0]), f"{algo}: model 1 unchanged")
+        if dual:
+            check(os.path.exists(os.path.join(ckpts + "2", "last.ckpt")),
+                  f"{algo} wrote no checkpoints2/last.ckpt")
+            check(not torch.equal(w1[1], w0[1]),
+                  f"{algo}: model 2 unchanged")
+            check(not torch.equal(w1[1], w1[0]),
+                  f"{algo}: model 2 equals model 1")
+        log(f"(e) {algo} on {net}: {steps[algo]} steps, kernel launches "
+            f"{launches[algo]}, step ms {[round(t, 3) for t in times]}, "
+            f"losses {losses}")
+        steady[algo] = steady_step_ms(trainer, raw_step)
+        profiled = profile_steps(trainer, raw_step,
+                                 float(np.median(steady[algo])))
+        log(f"(e) {algo} profile " + json.dumps(profiled))
+
+        # (f) test on the run's best snapshot
+        targs = test_2d.build_parser().parse_args(
+            ["--device", device, "--path_exp", trainer.paths.run,
+             "--hebbian_pretrain", "1", "-n", net, "-b", str(BATCH),
+             "--num_workers", "4"])
+        mean, std = input_stats(dataset_cfg("GlaS"), "image")
+        test_ds = array_dataset_class()(items["val"], mean, std, "test")
+        kernels.SWTA_DELTA.launches = 0
+        metrics = test_2d.run_test(targs, Loader(test_ds, BATCH,
+                                                 num_workers=4))
+        check(kernels.SWTA_DELTA.launches == 0, f"(f) {algo} launched K1")
+        check(metrics is not None and all(np.isfinite(v)
+                                          for v in metrics.values()),
+              f"(f) {algo} test metrics {metrics}")
+        check(0.0 <= metrics["segm/dice"] <= 1.0
+              and 0.0 <= metrics["segm/jaccard"] <= 1.0,
+              f"(f) {algo} test metrics out of range: {metrics}")
+        tests[algo] = metrics
+        log(f"(f) test {algo}: Dice {metrics['segm/dice']:.4f} Jaccard "
+            f"{metrics['segm/jaccard']:.4f} HD95 {metrics['segm/95hd']:.3f}"
+            f" ASSD {metrics['segm/asd']:.3f}")
+    return launches, steady, steps, tests
+
+
+def summary(steady):
+    return {k: {"median": float(np.median(v)), "min": min(v), "max": max(v)}
+            for k, v in steady.items()}
 
 
 def main():
@@ -509,7 +784,16 @@ def main():
 
     rows = phase_sites(device, images)
     phase_small_reference(device)
-    launches = phase_main_path(items)
+    phase_deep4_reference(device)
+    launches, run_a = phase_main_path(items)
+    l_d, snaps, steady_d, steps_d = phase_deep4_pretrain(items)
+    launches.update(l_d)
+    snaps["unet"] = os.path.join(run_a, "checkpoints", "last.ckpt")
+    l_e, steady_e, steps_e, tests = phase_semi(items, snaps)
+    log("deep4_semi_path " + json.dumps({
+        "launches": {**l_d, **l_e}, "steps": {**steps_d, **steps_e},
+        "steady_step_ms": summary({**steady_d, **steady_e}),
+        "test": tests}))
 
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
@@ -522,6 +806,8 @@ def main():
         "source": SwtaDeltaKernel.source,
         "replaces": "hebbax/hebb/pallas_kernels.py:93",
         "launches": launches["a"],
+        "launches_by_path": {k: launches[k] for k in
+                             ("a", "urpc_pretrain", "cct_pretrain")},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],

@@ -92,17 +92,19 @@ def resolve_device(spec):
     return device
 
 
-def make_loaders_2d(args, cfg, regime=None):
-    """{'train', 'val'} loaders over ``<path_dataset>/{train,val}``; the
-    train split keeps the labelled files of ``regime``."""
+def make_loaders_2d(args, cfg, sup=True, regime=None,
+                    splits=("train", "val")):
+    """Loaders over ``<path_dataset>/{train,val}`` for ``splits``: the
+    train split keeps the labelled files of ``regime`` (``sup``) or their
+    unlabelled complement, without masks (``sup=False``)."""
     mean, std = input_stats(cfg, args.input1)
     loaders = {}
     regime = args.regime if regime is None else regime
-    for split in ("train", "val"):
+    for split in splits:
         ds = SegDataset2D(
             os.path.join(args.path_dataset, split), args.input1, mean, std,
-            split=split, regime=regime if split == "train" else 100,
-            seed=args.seed)
+            split=split, sup=sup,
+            regime=regime if split == "train" else 100, seed=args.seed)
         loaders[split] = Loader(
             ds, args.batch_size, shuffle=(split == "train"),
             seed=args.seed, num_workers=args.num_workers)
@@ -127,19 +129,23 @@ def pretrain_base_network(name):
 
 def new_model(args, cfg, device, hebb=None):
     """The network named by args, initialised from args.seed (on the CPU,
-    so a seed gives the same weights on every device), on ``device``."""
+    so a seed gives the same weights on every device), on ``device``;
+    dropout draws from seed+1 and CCT perturbations from seed+2."""
     return get_network(
         args.network, cfg["IN_CHANNELS"], cfg["NUM_CLASSES"],
         init_type=args.init_weights, hebb=hebb, device=device,
         generator=make_generator(args.seed),
-        dropout_generator=make_generator(args.seed + 1, device))
+        dropout_generator=make_generator(args.seed + 1, device),
+        perturb_generator=make_generator(args.seed + 2, device))
 
 
 def build_model_2d(args, cfg, device, load_hebbian=None, load_weights=None):
     """Model + the pretrain -> fine-tune hand-off: a Hebbian snapshot
     loads with alpha forced to 0 and its excluded modules' parameters
     re-initialised (BN statistics load for every module); a plain
-    snapshot loads with the ``out_conv`` head re-initialised."""
+    snapshot loads with the ``out_conv`` head re-initialised.  The load is
+    strict: a snapshot of another network (e.g. ``unet`` into
+    ``unet_urpc``) raises rather than loading in part."""
     init_seeds(args.seed)
     hebb, state, meta = None, None, None
     if load_hebbian:
@@ -151,12 +157,11 @@ def build_model_2d(args, cfg, device, load_hebbian=None, load_weights=None):
     if state is not None:
         exclude = hebb.exclude if hebb is not None else ("out_conv",)
         param_names = {n for n, _ in model.named_parameters()}
-        keep = {n: t for n, t in state.items()
-                if not (n in param_names and is_excluded(
-                    tuple(n.rsplit(".", 1)[0].split(".")), exclude))}
-        merged = dict(model.state_dict())
-        merged.update(keep)
-        model.load_state_dict(merged)
+        own = model.state_dict()
+        model.load_state_dict({
+            n: (own[n] if n in param_names and is_excluded(
+                tuple(n.rsplit(".", 1)[0].split(".")), exclude) else t)
+            for n, t in state.items()})
     return model, hebb
 
 

@@ -5,8 +5,9 @@ Every non-excluded conv is Hebbian (a HebbSpec bound to the model); the
 dice loss on the excluded head gives backprop grads only there; Hebbian
 kernels update with grad = -delta (alpha=1) through the same optimizer;
 converted conv biases and BN affine are frozen (not given to the
-optimizer).  Snapshots carry hebb_params + excluded_layers for the
-fine-tune hand-off.
+optimizer).  Deep-supervision networks (``unet_urpc``, ``unet_cct``)
+average the loss over their four heads.  Snapshots carry hebb_params +
+excluded_layers for the fine-tune hand-off.
 
     python -m hebbax_torch.cli.pretrain_hebbian_unsup_2d -n unet \\
         --exclude out_conv --hebb_mode swta_t --hebb_inv_temp 50 ...
@@ -18,6 +19,7 @@ from ..engine.state import TrainState
 from ..engine.steps import make_eval_step, make_sup_train_step
 from ..hebb.spec import HebbSpec
 from ..hebb.surgery import pretrain_trainable_names
+from ..models import network_meta
 from ..ops.losses import segmentation_loss
 from ..utils.rundir import dump_config, make_run_dir
 from ..utils.seeding import init_seeds
@@ -66,7 +68,10 @@ def build(args, loaders=None):
 
     criterion = segmentation_loss(args.loss)
     train_step = make_sup_train_step(
-        model, args.network, criterion, hebb_alpha=spec.alpha,
+        model, args.network, criterion,
+        # the heads of unet_urpc / unet_cct are averaged unconditionally
+        deep_supervision=network_meta(args.network)["outputs"] == "deep4",
+        hebb_alpha=spec.alpha,
         # alpha=1: backprop grads on converted kernels are scaled to zero,
         # so differentiate only the excluded head
         backprop_only=spec.exclude if spec.alpha == 1.0 else None)

@@ -1,7 +1,8 @@
 """2D test-set evaluation (``hebbax/cli/test_2d.py``).
 
-Loads best_JI/last snapshot from <path_exp>/checkpoints, reuses the
-stored threshold, computes Dice/Jaccard at that threshold plus HD95/ASSD,
+Loads best_JI/last snapshot from <path_exp>/checkpoints into the network
+named by ``-n`` (a deep4 network is tested on its primary output), reuses
+the stored threshold, computes Dice/Jaccard at that threshold plus HD95/ASSD,
 saves paletted PNG predictions, and writes test.csv with the reference's
 column names.
 

@@ -46,9 +46,11 @@ def build(args, loaders=None):
     state = TrainState(model=model, optimizer=optimizer, schedule=schedule)
 
     criterion = segmentation_loss(args.loss)
-    # -ds (deep supervision) is a no-op for single-output networks, the
-    # only ones ported
-    train_step = make_sup_train_step(model, args.network, criterion)
+    # -ds averages the loss over the heads of a deep4 network; a no-op
+    # for single-output ones
+    train_step = make_sup_train_step(
+        model, args.network, criterion,
+        deep_supervision=bool(args.deep_supervision))
     eval_step = make_eval_step(model, args.network, criterion)
 
     hebb_meta = {}

@@ -33,7 +33,11 @@ class SupTrainer:
 
     train_step : (state, batch) -> (state, {'loss', 'logits'})
     eval_step : batch -> {'logits', 'loss'}
+    train_key : the loader an epoch runs over (the semi trainers run over
+        'train_sup' and draw from 'train_unsup' beside it)
     """
+
+    train_key = "train"
 
     def __init__(self, *, state, train_step, eval_step, loaders,
                  num_classes, paths, args, device, hebb_meta=None,
@@ -53,21 +57,26 @@ class SupTrainer:
         self.train_log = MetricsLog(paths.run, "train_log.csv")
         self.val_log = MetricsLog(paths.run, "val_log.csv")
         self.best_val = [0.0, 0.0, 0.0]
+        self._epoch_losses = None
 
     def prep(self, batch):
         out = to_device_batch(batch, self.device)
         out.pop("id", None)
         return out
 
-    def _save(self, threshold, best):
+    def _save_best(self, threshold, epoch):
         save_snapshot(self.state.state_dict(), self.paths.checkpoints,
-                      threshold=threshold, save_best=best, **self.hebb_meta)
+                      threshold=threshold, save_best=True, **self.hebb_meta)
+
+    def _save_last(self, threshold):
+        save_snapshot(self.state.state_dict(), self.paths.checkpoints,
+                      threshold=threshold, save_best=False, **self.hebb_meta)
 
     def train_epoch(self, epoch, collect_metrics):
         acc = make_accumulator(self.num_classes) if collect_metrics else None
         # the loss accumulates on the device; one read at epoch end
         total_loss, n_batches = 0.0, 0
-        for batch in self.loaders["train"]:
+        for batch in self.loaders[self.train_key]:
             batch = self.prep(batch)
             self.state, out = self.train_step(self.state, batch)
             total_loss = total_loss + out["loss"]
@@ -113,8 +122,17 @@ class SupTrainer:
                 p.epoch_loss(train_loss, train=True)
                 ev = acc.finalize()
                 p.eval_list(self.num_classes, ev, train=True)
-                self.writer.add_scalar("train/segm_loss", train_loss,
-                                       epoch + 1)
+                losses = self._epoch_losses
+                if losses:  # semi trainers: sup/unsup/total sinks
+                    self.writer.add_scalar("train/segm_loss",
+                                           losses["loss_sup"], epoch + 1)
+                    self.writer.add_scalar("train/unsup_loss",
+                                           losses["loss_unsup"], epoch + 1)
+                    self.writer.add_scalar("train/total_loss",
+                                           losses["loss"], epoch + 1)
+                else:
+                    self.writer.add_scalar("train/segm_loss", train_loss,
+                                           epoch + 1)
                 self.writer.add_scalar("train/JI", ev[1], epoch + 1)
                 self.writer.add_scalar("train/DC", ev[2], epoch + 1)
                 self.train_log.append(epoch=epoch + 1, loss=train_loss,
@@ -134,13 +152,13 @@ class SupTrainer:
                                     JI=ev[1], DC=ev[2])
                 if ev[1] > self.best_val[1]:
                     self.best_val = list(ev)
-                    self._save(ev[0], best=True)
+                    self._save_best(ev[0], epoch)
                     if args.debug and preds and self.palette is not None:
                         image_utils.save_preds(
                             np.concatenate(preds), ev[0], names,
                             self.paths.val_seg_preds, self.palette)
 
-        self._save(self.best_val[0], best=False)
+        self._save_last(self.best_val[0])
         self.train_log.flush()
         self.val_log.flush()
         self.printer.rule("=")

@@ -25,11 +25,41 @@ def _module_path(param_name):
     return tuple(param_name.rsplit(".", 1)[0].split("."))
 
 
+def sup_loss_fn(criterion, network, outputs, mask, deep_supervision=False):
+    """Supervised loss: the criterion averaged over the heads of a
+    multi-output network under deep supervision, else on the primary
+    output."""
+    if deep_supervision and isinstance(outputs, tuple):
+        return sum(criterion(o, mask) for o in outputs) / len(outputs)
+    return criterion(primary_logits(network, outputs), mask)
+
+
+def apply_grads(optimizer, schedule, count, grads):
+    """One optimizer step at ``schedule(count)``: every parameter the
+    optimizer holds gets its grad from ``grads`` ({param: grad}), a zero
+    where none reached it."""
+    lr = schedule(count)
+    groups = optimizer.param_groups
+    for group in groups:
+        group["lr"] = lr
+        for p in group["params"]:
+            g = grads.get(p)
+            p.grad = torch.zeros_like(p) if g is None else g
+    optimizer.step()
+    for group in groups:
+        for p in group["params"]:
+            p.grad = None
+
+
 def make_sup_train_step(model, network: str, criterion,
+                        deep_supervision: bool = False,
                         hebb_alpha: float = 0.0, backprop_only=None):
     """Supervised (or Hebbian pretraining) step ``(state, batch) ->
     (state, {'loss', 'logits'})``.
 
+    deep_supervision: average the criterion over the four heads of a deep4
+    network (the Hebbian pretraining of ``unet_urpc`` / ``unet_cct``,
+    ``train_sup_2d -ds``).
     backprop_only: module-path prefixes (the Hebbian ``exclude`` head
     names).  When set, only the parameters under them are differentiated
     (``torch.autograd.grad`` over the head) and every other parameter has
@@ -39,7 +69,6 @@ def make_sup_train_step(model, network: str, criterion,
     backward is skipped and the loss is still reported.
     """
     params = dict(model.named_parameters())
-    name_of = {p: n for n, p in params.items()}
     if backprop_only:
         heads = tuple(backprop_only)
         diff = [n for n in params if is_excluded(_module_path(n), heads)]
@@ -51,27 +80,23 @@ def make_sup_train_step(model, network: str, criterion,
     def step(state, batch):
         model.train()
         pop_deltas(model)
-        logits = primary_logits(network, model(batch["image"]))
-        loss = criterion(logits, batch["mask"])
+        outputs = model(batch["image"])
+        loss = sup_loss_fn(criterion, network, outputs, batch["mask"],
+                           deep_supervision)
         deltas = pop_deltas(model)
         grads = {}
         if diff:
-            gs = torch.autograd.grad(loss, [params[n] for n in diff])
-            grads = dict(zip(diff, gs))
+            # a head the loss does not read (URPC's lower heads without
+            # deep supervision) gets None here and a zero grad below
+            gs = torch.autograd.grad(loss, [params[n] for n in diff],
+                                     allow_unused=True)
+            grads = {n: g for n, g in zip(diff, gs) if g is not None}
         if hebb_alpha:
             grads = merge_hebbian_grads(params, grads, deltas, hebb_alpha)
-        lr = state.schedule(state.step)
-        groups = state.optimizer.param_groups
-        for group in groups:
-            group["lr"] = lr
-            for p in group["params"]:
-                g = grads.get(name_of[p])
-                p.grad = torch.zeros_like(p) if g is None else g
-        state.optimizer.step()
-        for group in groups:
-            for p in group["params"]:
-                p.grad = None
+        apply_grads(state.optimizer, state.schedule, state.step,
+                    {params[n]: g for n, g in grads.items()})
         state.step += 1
+        logits = primary_logits(network, outputs)
         return state, {"loss": loss.detach(), "logits": logits.detach()}
 
     return step

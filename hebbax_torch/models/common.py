@@ -1,9 +1,22 @@
 """Shared model ops (``hebbax/models/common.py``) in NCHW: pooling, the
-align_corners bilinear resize, and flax-semantics batch norm."""
+align_corners bilinear and floor-indexed nearest resizes, flax-semantics
+batch norm, and the CCT feature perturbations.
+
+Each perturbation is split in two: ``draw_perturbation`` takes its random
+draw from an explicit ``torch.Generator``, and ``feature_noise`` /
+``feature_dropout_elementwise`` / ``feature_dropout_attention`` apply a
+given draw, so a caller can pass draws in as tensors (the tests pass
+hebbax's ``jax.random`` draws).
+"""
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+CCT_PERTURB_KINDS = ("noise", "dropout", "feature_dropout")
+CCT_DROPOUT_P = 0.3             # element dropout rate
+CCT_NOISE_RANGE = 0.3           # multiplicative noise ~ U(-r, r)
+CCT_FRAC_RANGE = (0.7, 0.9)     # attention threshold fraction ~ U(lo, hi)
 
 
 def max_pool(x):
@@ -21,6 +34,90 @@ def resize_linear_align_corners(x, out_spatial):
         return x
     return F.interpolate(x, size=tuple(out_spatial), mode="bilinear",
                          align_corners=True)
+
+
+def resize_nearest_torch(x, out_spatial):
+    """Nearest resize with torch's floor indexing, src = floor(i*in/out),
+    taken in integers (a repeat for whole multiples)."""
+    for d, n_out in enumerate(out_spatial):
+        axis = 2 + d
+        n_in = x.shape[axis]
+        if n_in == n_out:
+            continue
+        if n_out % n_in == 0:
+            x = torch.repeat_interleave(x, n_out // n_in, dim=axis)
+        else:
+            idx = torch.arange(n_out, device=x.device) * n_in // n_out
+            x = torch.index_select(x, axis, idx)
+    return x
+
+
+# -- CCT feature perturbations ---------------------------------------------
+
+def draw_perturbation(kind, x, generator=None):
+    """The random draw of one perturbation of the feature map ``x``
+    (N, C, H, W): ``noise`` one (C, H, W) tensor shared across the batch,
+    ``dropout`` an elementwise boolean keep mask, ``feature_dropout`` one
+    scalar fraction."""
+    if kind == "noise":
+        return torch.empty(x.shape[1:], dtype=x.dtype,
+                           device=x.device).uniform_(
+            -CCT_NOISE_RANGE, CCT_NOISE_RANGE, generator=generator)
+    if kind == "dropout":
+        return torch.empty_like(x).bernoulli_(
+            1.0 - CCT_DROPOUT_P, generator=generator).bool()
+    if kind == "feature_dropout":
+        return torch.empty((), dtype=x.dtype, device=x.device).uniform_(
+            *CCT_FRAC_RANGE, generator=generator)
+    raise ValueError(f"unknown CCT perturbation {kind!r}")
+
+
+def feature_dropout_elementwise(x, keep, p=CCT_DROPOUT_P):
+    """Functional dropout with the drawn keep mask."""
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def feature_noise(x, noise):
+    """x * noise + x, the (C, H, W) noise shared across the batch."""
+    return x * noise[None] + x
+
+
+def feature_dropout_attention(x, frac):
+    """Zero the positions whose channel-mean activation reaches ``frac``
+    of its per-sample maximum."""
+    attention = torch.mean(x, dim=1, keepdim=True)
+    max_val = torch.amax(attention.reshape(x.shape[0], -1), dim=1)
+    threshold = (max_val * frac).reshape(-1, 1, 1, 1)
+    return x * (attention < threshold).to(x.dtype)
+
+
+_PERTURB = {"noise": feature_noise, "dropout": feature_dropout_elementwise,
+            "feature_dropout": feature_dropout_attention}
+
+
+def perturb_features(feats, kind, generator=None, draws=None):
+    """Apply one CCT perturbation to a list of feature maps, with
+    ``draws`` (one per map) or fresh draws from ``generator``."""
+    if draws is None:
+        draws = [draw_perturbation(kind, f, generator) for f in feats]
+    return [_PERTURB[kind](f, d) for f, d in zip(feats, draws)]
+
+
+def cct_aux_outputs(clean_levels, perturb_one, decode, batched=False):
+    """The CCT protocol: the clean decode, then one decode per
+    perturbation kind, in ``CCT_PERTURB_KINDS`` order.
+
+    perturb_one(kind) -> the perturbed list of levels; decode(levels) ->
+    logits.  Four serial passes, so every batch norm of the shared decoder
+    takes four momentum updates per training forward.  ``batched`` (one
+    4N-batched decode, which changes training BN numerics) is a TPU
+    variant that is not ported."""
+    if batched:
+        raise NotImplementedError(
+            "the 4N-batched CCT decode (unet_cct_s2d_batched) is not "
+            "ported yet")
+    pert = [perturb_one(kind) for kind in CCT_PERTURB_KINDS]
+    return (decode(clean_levels), *[decode(p) for p in pert])
 
 
 class BatchNorm2d(nn.Module):

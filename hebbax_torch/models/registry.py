@@ -1,18 +1,28 @@
-"""Network registry (``hebbax/models/registry.py``), the 2D main-path
-networks: ``unet``, and ``unet_s2d`` registered on the same UNet2D — its
-parameter tree is identical and the space-to-depth fold is a TPU layout,
-so the CLIs' default ``-n unet_s2d`` runs the plain UNet2D here.
+"""Network registry (``hebbax/models/registry.py``), the 2D networks
+ported so far: ``unet``, ``unet_urpc`` and ``unet_cct``.  The folded
+``*_s2d`` names are registered on the same classes: their parameter trees
+are identical and the space-to-depth fold is a TPU layout, so the CLIs'
+default ``-n unet_s2d`` (``unet_urpc_s2d``, ``unet_cct_s2d``) runs the
+unfolded network here.  ``unet_cct_s2d_batched`` (one 4N-batched decode,
+other training BN numerics) is not registered.
 """
 
 from typing import Optional
 
 from ..hebb.spec import HebbSpec
-from .unet2d import UNet2D
+from .unet2d import UNet2D, UNetCCT2D, UNetURPC2D
+
+_DEEP4 = dict(nd=2, outputs="deep4")
+_CCT = dict(nd=2, outputs="deep4", rngs=("perturb",))
 
 # name -> (factory, metadata)
 _REGISTRY = {
     "unet": (UNet2D, dict(nd=2, outputs="single")),
     "unet_s2d": (UNet2D, dict(nd=2, outputs="single")),
+    "unet_urpc": (UNetURPC2D, _DEEP4),
+    "unet_urpc_s2d": (UNetURPC2D, _DEEP4),
+    "unet_cct": (UNetCCT2D, _CCT),
+    "unet_cct_s2d": (UNetCCT2D, _CCT),
 }
 
 
@@ -32,20 +42,24 @@ def network_meta(name: str) -> dict:
 
 def get_network(name: str, in_channels: int, num_classes: int,
                 init_type: str = "kaiming", hebb: Optional[HebbSpec] = None,
-                device=None, generator=None, dropout_generator=None):
-    """Build a model module on ``device``."""
-    if name not in _REGISTRY:
-        raise KeyError(f"unknown network {name!r}; "
-                       f"available: {available_networks()}")
+                device=None, generator=None, dropout_generator=None,
+                perturb_generator=None):
+    """Build a model module on ``device``; ``perturb_generator`` goes to
+    the networks that draw perturbations (the ``perturb`` rng)."""
+    meta = network_meta(name)
+    kw = {}
+    if "perturb" in meta["rngs"]:
+        kw["perturb_generator"] = perturb_generator
     factory = _REGISTRY[name][0]
     return factory(in_channels=in_channels, n_cls=num_classes,
                    init_type=init_type, hebb=hebb, device=device,
-                   generator=generator, dropout_generator=dropout_generator)
+                   generator=generator, dropout_generator=dropout_generator,
+                   **kw)
 
 
 def primary_logits(name: str, outputs):
-    """The tensor driving metrics and model selection (the first output
-    of a multi-output network; every network ported so far has one)."""
+    """The tensor driving metrics and model selection: the output of a
+    single-output network, the first (finest / clean) of a deep4 one."""
     if network_meta(name)["outputs"] == "single":
         return outputs
     return outputs[0]

@@ -1,13 +1,15 @@
-"""2D UNet (``hebbax/models/unet2d.py``), NCHW, with the same module names
-as hebbax so the parameter map to the flax tree is mechanical.
+"""2D UNet family (``hebbax/models/unet2d.py``), NCHW, with the same
+module names as hebbax so the parameter map to the flax tree is
+mechanical.
 
 * Encoder: ConvBlockLeaky(in->16, p=.05) then 4x [maxpool2 +
   ConvBlockLeaky] with channels [32,64,128,256], dropout [.1,.2,.3,.5].
 * Decoder: 4 UpBlocks, each = 1x1 conv + bilinear(align_corners=True) 2x
   upsample + concat(skip, up) + two conv3x3-BN-ReLU (no transpose convs).
-* Head: MLPHead, three 3x3 convs with ReLU+Dropout(0.5) (hebbax's
-  linear_probe / multiple_layers variants wait for the networks that use
-  them).
+* Heads: UNet2D's MLPHead, three 3x3 convs with ReLU+Dropout(0.5)
+  (hebbax's linear_probe / multiple_layers variants wait for the networks
+  that use them); UNetURPC2D's four single-conv deep-supervision heads;
+  UNetCCT2D's single conv after a decoder shared by four passes.
 
 Every conv is an HConv; a HebbSpec passed to the model makes the
 non-excluded ones Hebbian.  ``generator`` (CPU) draws the initial
@@ -24,7 +26,9 @@ import torch.nn.functional as F
 from ..hebb.layers import HConv, bind_paths
 from ..hebb.spec import HebbSpec
 from ..ops.dropout import Dropout
-from .common import BatchNorm2d, max_pool, resize_linear_align_corners
+from .common import (CCT_PERTURB_KINDS, BatchNorm2d, cct_aux_outputs,
+                     draw_perturbation, max_pool, perturb_features,
+                     resize_linear_align_corners, resize_nearest_torch)
 
 FEATURES = (16, 32, 64, 128, 256)
 ENC_DROPOUT = (0.05, 0.1, 0.2, 0.3, 0.5)
@@ -172,3 +176,95 @@ class UNet2D(nn.Module):
 
     def forward(self, x):
         return self.out_conv(self.main_decoder(self.encoder(x)))
+
+
+class UNetURPC2D(nn.Module):
+    """Multi-scale deep supervision: a single 3x3 head after each
+    UpBlock, the lower three nearest-upsampled to the input size.  Returns
+    (out_conv, dp1, dp2, dp3), finest first."""
+
+    def __init__(self, in_channels: int, n_cls: int,
+                 hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
+                 device=None, generator=None, dropout_generator=None):
+        super().__init__()
+        kw = dict(init_type=init_type, device=device, generator=generator)
+        hk = dict(kernel_size=3, padding=1, **kw)
+        f = FEATURES
+        self.encoder = Encoder2D(in_channels,
+                                 dropout_generator=dropout_generator, **kw)
+        self.up1 = UpBlock2D(f[4], f[3], f[3], f[3], **kw)
+        self.out_conv_dp3 = HConv(f[3], n_cls, **hk)
+        self.up2 = UpBlock2D(f[3], f[2], f[2], f[2], **kw)
+        self.out_conv_dp2 = HConv(f[2], n_cls, **hk)
+        self.up3 = UpBlock2D(f[2], f[1], f[1], f[1], **kw)
+        self.out_conv_dp1 = HConv(f[1], n_cls, **hk)
+        self.up4 = UpBlock2D(f[1], f[0], f[0], f[0], **kw)
+        self.out_conv = HConv(f[0], n_cls, **hk)
+        self.hebb = hebb
+        bind_paths(self, hebb)
+
+    def forward(self, x):
+        shape = x.shape[2:]
+        x0, x1, x2, x3, x4 = self.encoder(x)
+        up = self.up1(x4, x3)
+        dp3 = resize_nearest_torch(self.out_conv_dp3(up), shape)
+        up = self.up2(up, x2)
+        dp2 = resize_nearest_torch(self.out_conv_dp2(up), shape)
+        up = self.up3(up, x1)
+        dp1 = resize_nearest_torch(self.out_conv_dp1(up), shape)
+        up = self.up4(up, x0)
+        return self.out_conv(up), dp1, dp2, dp3
+
+
+class UNetCCT2D(nn.Module):
+    """One shared decoder (``up1..up4`` + a 3x3 ``out_conv``) run on the
+    clean encoder features and on 3 perturbed copies (noise, dropout,
+    feature dropout).  Returns (main, aux1, aux2, aux3).
+
+    A training forward always perturbs, drawing from
+    ``perturb_generator`` through :meth:`draw_perturbations` (an instance
+    may replace that method to inject draws).  An eval forward skips the
+    perturbed passes and returns the main output four times: only the
+    primary output is read in eval.
+    """
+
+    def __init__(self, in_channels: int, n_cls: int,
+                 hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
+                 device=None, generator=None, dropout_generator=None,
+                 perturb_generator=None):
+        super().__init__()
+        kw = dict(init_type=init_type, device=device, generator=generator)
+        f = FEATURES
+        self.encoder = Encoder2D(in_channels,
+                                 dropout_generator=dropout_generator, **kw)
+        self.up1 = UpBlock2D(f[4], f[3], f[3], f[3], **kw)
+        self.up2 = UpBlock2D(f[3], f[2], f[2], f[2], **kw)
+        self.up3 = UpBlock2D(f[2], f[1], f[1], f[1], **kw)
+        self.up4 = UpBlock2D(f[1], f[0], f[0], f[0], **kw)
+        self.out_conv = HConv(f[0], n_cls, kernel_size=3, padding=1, **kw)
+        self.perturb_generator = perturb_generator
+        self.hebb = hebb
+        bind_paths(self, hebb)
+
+    def decode(self, feats):
+        x0, x1, x2, x3, x4 = feats
+        d = self.up1(x4, x3)
+        d = self.up2(d, x2)
+        d = self.up3(d, x1)
+        return self.out_conv(self.up4(d, x0))
+
+    def draw_perturbations(self, feats):
+        """{kind: [draw per feature level]} for one training forward."""
+        return {kind: [draw_perturbation(kind, f, self.perturb_generator)
+                       for f in feats] for kind in CCT_PERTURB_KINDS}
+
+    def forward(self, x):
+        feats = self.encoder(x)
+        if not self.training:
+            main = self.decode(feats)
+            return main, main, main, main
+        draws = self.draw_perturbations(feats)
+        return cct_aux_outputs(
+            feats, lambda kind: perturb_features(feats, kind,
+                                                 draws=draws[kind]),
+            self.decode)

@@ -1,9 +1,38 @@
-"""Segmentation losses (``hebbax/ops/losses.py``), channels-first logits
-``(N, C, H, W)`` and integer masks ``(N, H, W)`` with ``ignore_index=-1``
-marking invalid pixels.  Losses reduce in float32."""
+"""Segmentation and consistency losses (``hebbax/ops/losses.py``),
+channels-first logits ``(N, C, H, W)`` and integer masks ``(N, H, W)``
+with ``ignore_index=-1`` marking invalid pixels.  Losses reduce in
+float32."""
+
+import math
 
 import torch
 import torch.nn.functional as F
+
+
+def weighted_mean(x, w=None):
+    """Mean of ``x`` over all elements, with optional per-sample weights
+    ``w`` (N,): with a 0/1 validity vector it is the mean over the valid
+    samples only."""
+    if w is None:
+        return torch.mean(x)
+    wb = w.reshape((-1,) + (1,) * (x.dim() - 1))
+    denom = torch.sum(w) * float(math.prod(x.shape[1:]))
+    return torch.sum(x * wb) / torch.clamp(denom, min=1.0)
+
+
+def softmax_mse_loss(input_logits, target_logits):
+    """Elementwise squared difference of the channel softmaxes; no
+    gradient flows into the target."""
+    a = torch.softmax(input_logits, dim=1)
+    b = torch.softmax(target_logits, dim=1).detach()
+    return (a - b) ** 2
+
+
+def entropy_loss(probs, num_classes=2, weight=None):
+    """Mean pixel entropy of a softmax map (channel axis 1), normalized by
+    log(C)."""
+    ent = -torch.sum(probs * torch.log(probs + 1e-6), dim=1)
+    return weighted_mean(ent, weight) / math.log(num_classes)
 
 
 def _one_hot_valid(target, num_classes, ignore_index=-1):

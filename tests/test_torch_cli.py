@@ -146,6 +146,8 @@ def test_port_imports_no_jax():
         "import hebbax_torch.hebb, hebbax_torch.hebb.kernels\n"
         "import hebbax_torch.cli.pretrain_hebbian_unsup_2d\n"
         "import hebbax_torch.cli.train_sup_2d, hebbax_torch.cli.test_2d\n"
+        "import hebbax_torch.cli.train_semi_2d, hebbax_torch.engine.semi\n"
+        "import hebbax_torch.ops.ema, hebbax_torch.config.ramps\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'hebbax'))\n"
