@@ -50,9 +50,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    for uamt / cps checkpoints2/last.ckpt, both models moved and model 2
    unlike model 1; (f) ``test_2d --hebbian_pretrain 1`` on each (e) run's
    best_JI.ckpt: finite metrics in range;
-6. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
-   urpc_pretrain, cct_pretrain), the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+6. the unsupervised baselines, none of which has a Hebbian conv (K1
+   launches 0 in each): (g) at batch 2, 32x32, a training forward of
+   ``unet_vae`` (same eps), ``unet_superpix`` and ``unet_ddpm``'s net /
+   net_seg (same t) on the card against the CPU, every output within
+   1e-4 (``unet_ddpm``'s: 1e-4 of max(1, its largest |value|)); (h)
+   ``pretrain_unsup_2d`` vae / superpix / superdiff on the same data (Adam, lr 1e-4, superdiff at 1000 timesteps, batch 32, 2 epochs,
+   warmup 1): finite ``loss`` / ``loss_unsup`` (/ ``loss_superdiff``)
+   columns, last.ckpt written, every non-head parameter moved, then 10
+   steady and 3 profiled steps, and the superpixel pseudo-mask prep (host
+   numpy) timed apart over 10 batches; (i) ``train_semi_2d em -n
+   unet_s2d --load_weights`` on (h)'s vae and superpix last.ckpt with the
+   sweep's flags (the loaded trunk equal to the snapshot before the first
+   step), timed like (e), then ``test_2d --best JI`` on each; one
+   ``unsup_baseline_path`` line carries their numbers;
+7. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
+   urpc_pretrain, cct_pretrain and the paths of 6), the card's name and
+   power limit, and last ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
 and writes only under ``build/`` beside this file.
@@ -749,6 +763,231 @@ def phase_semi(items, snaps, device="0"):
     return launches, steady, steps, tests
 
 
+UNSUP_KINDS = ("vae", "superpix", "superdiff")
+
+
+def phase_unsup_reference(device):
+    """(g) Training forward of unet_vae (same eps), unet_superpix and
+    unet_ddpm's net / net_seg (same t) at batch 2, 32x32 on the card
+    against the same weights on the CPU; every output within 1e-4 (the
+    logits gate of 3), ``unet_ddpm``'s within 1e-4 of max(1, its largest
+    |value|): its outputs reach ~4 and carry the rounding of 23 convs up
+    to 512 wide with train-mode BN over a 2x2 bottleneck; and no K1
+    launch (no Hebbian conv)."""
+    import torch
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.models import get_network
+    from hebbax_torch.ops.dropout import Dropout
+    from hebbax_torch.utils.seeding import make_generator
+
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 32, 32)).astype(
+        np.float32))
+    x5 = torch.from_numpy(rng.standard_normal((2, 5, 32, 32)).astype(
+        np.float32))
+    eps = torch.from_numpy(rng.standard_normal((2, 256, 2, 2)).astype(
+        np.float32))
+    t = torch.tensor([17, 903])
+    errs = {}
+    for net in ("unet_vae", "unet_superpix", "unet_ddpm"):
+        gpu, cpu = [get_network(net, 3, 2, device=dev,
+                                generator=make_generator(4))
+                    for dev in (device, "cpu")]
+        for m in (gpu, cpu):
+            for mod in m.modules():
+                if isinstance(mod, Dropout):
+                    mod.p = 0.0         # dropout off: the streams differ
+            m.train()
+        before = kernels.SWTA_DELTA.launches
+        with torch.no_grad():
+            if net == "unet_vae":
+                out_c = cpu(x, eps=eps)
+                out_g = gpu(x.to(device), eps=eps.to(device))
+                pairs = {k: (out_g[k], out_c[k]) for k in out_c}
+            elif net == "unet_superpix":
+                pairs = dict(zip(("seg", "superpix"), zip(
+                    gpu(x.to(device)), cpu(x))))
+            else:
+                pairs = {m: (gpu(x5.to(device), t.to(device), mode=m),
+                             cpu(x5, t, mode=m))
+                         for m in ("net", "net_seg")}
+        check(kernels.SWTA_DELTA.launches == before,
+              f"{net}: the card's forward launched K1")
+        for k, (g, c) in pairs.items():
+            err = float((g.cpu() - c).abs().max())
+            scale = max(1.0, float(c.abs().max()))
+            check(err <= 1e-4 * (scale if net == "unet_ddpm" else 1.0),
+                  f"{net} {k}: card vs CPU differ by {err} (scale {scale})")
+            errs[f"{net}.{k}"] = {"max_abs": err, "scale": scale}
+        log(f"small-input reference {net}: " + ", ".join(
+            f"{k} {errs[f'{net}.{k}']['max_abs']:.3e} of "
+            f"{errs[f'{net}.{k}']['scale']:.3g}" for k in pairs)
+            + " max abs diff of scale, 0 launches")
+    return errs
+
+
+def superpix_prep_ms(trainer, n=10):
+    """Host time (ms) of the superpixel pseudo-masks of n train batches."""
+    from hebbax_torch.cli.pretrain_unsup_2d import superpix_masks
+
+    times, batches = [], []
+    while len(batches) < n:
+        batches.extend(trainer.loaders["train"])
+    for batch in batches[:n]:
+        t0 = time.perf_counter()
+        superpix_masks(batch["image"], trainer.args.seed)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_unsup_pretrain(items, device="0"):
+    """(h) pretrain_unsup_2d vae / superpix / superdiff with the sweep's
+    Adam at lr 1e-4 (superdiff at its 1000 timesteps): no K1 launch,
+    finite loss columns, last.ckpt, every non-head parameter moved; then
+    steady and profiled steps on prepared batches, and the superpixel
+    prep timed apart."""
+    import torch
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import pretrain_unsup_2d as unsup
+    from hebbax_torch.hebb import kernels
+
+    on = "cpu" if device == "cpu" else "cuda"
+    launches, snaps, steady, profiled, steps = {}, {}, {}, {}, {}
+    prep = None
+    for kind in UNSUP_KINDS:
+        key = f"{kind}_pretrain"
+        args = unsup.add_args(common.base_parser_2d(), kind).parse_args(
+            cli_base(device) + ["--optimizer", "adam", "-l", "1e-4",
+                                "--debug", ""])
+        trainer = unsup.build(args, kind, make_loaders(items, args, 100))
+        model = trainer.state.model
+        heads = tuple(h + "." for h in unsup.HEADS[kind])
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        times = []
+        raw_step = trainer.train_step
+        trainer.train_step = timed_step(raw_step, times)
+        kernels.SWTA_DELTA.launches = 0
+        trainer.run()
+        launches[key] = kernels.SWTA_DELTA.launches
+        steps[key] = len(times)
+        check(launches[key] == 0, f"{key} launched K1 {launches[key]} times")
+        check(steps[key] == 2 * len(trainer.loaders["train"]),
+              f"{key} ran {steps[key]} steps")
+        check(all_on(model, on), f"a model tensor is off {on}")
+        cols = ["loss", "loss_unsup"] + (["loss_superdiff"]
+                                         if kind == "superdiff" else [])
+        rows = trainer.train_log.rows
+        losses = {c: [r[c] for r in rows] for c in cols}
+        check(len(rows) == 2 and all(np.isfinite(v) for c in cols
+                                     for v in losses[c]),
+              f"{key} train_log losses {losses}")
+        val = [r["loss"] for r in trainer.val_log.rows]
+        check(all(np.isfinite(v) for v in val), f"{key} val losses {val}")
+        snaps[kind] = os.path.join(trainer.paths.checkpoints, "last.ckpt")
+        check(os.path.exists(snaps[kind]), f"{key} wrote no last.ckpt")
+        still = [n for n, p in model.named_parameters()
+                 if not n.startswith(heads) and torch.equal(p, p0[n])]
+        check(not still, f"{key}: non-head parameters did not move: "
+                         f"{still[:5]} ({len(still)})")
+        log(f"(h) {key}: {steps[key]} steps, K1 launches {launches[key]}, "
+            f"step ms {[round(t, 3) for t in times]}, losses {losses}, "
+            f"val {val}")
+        steady[key] = steady_step_ms(trainer, raw_step)
+        profiled[key] = profile_steps(trainer, raw_step,
+                                      float(np.median(steady[key])))
+        log(f"(h) {key} profile " + json.dumps(profiled[key]))
+        if kind == "superpix":
+            prep = superpix_prep_ms(trainer)
+            log(f"(h) superpix prep ms (10 batches of {BATCH}) "
+                f"{[round(t, 3) for t in prep]}")
+    return launches, snaps, steady, profiled, steps, prep
+
+
+def phase_unsup_em(items, snaps, device="0"):
+    """(i) train_semi_2d em -n unet_s2d --load_weights on (h)'s vae and
+    superpix last.ckpt with the sweep's flags (SGD, lr 0.5, dice, unsup
+    weight 5, regime 50): the loaded trunk equals the snapshot before the
+    first step, no K1 launch, finite losses; then test_2d --best JI on
+    each run: finite metrics in range, no K1 launch."""
+    import torch
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import test_2d
+    from hebbax_torch.cli import train_semi_2d
+    from hebbax_torch.config.datasets import dataset_cfg, input_stats
+    from hebbax_torch.data import Loader
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.utils.checkpoint import load_state_dict
+
+    on = "cpu" if device == "cpu" else "cuda"
+    launches, steady, profiled, steps, tests = {}, {}, {}, {}, {}
+    for kind in ("vae", "superpix"):
+        key = f"em_{kind}"
+        args = train_semi_2d.add_args(common.base_parser_2d(), "em")\
+            .parse_args(cli_base(device) + [
+                "-n", "unet_s2d", "--load_weights", snaps[kind],
+                "--regime", "50", "--optimizer", "sgd", "-l", "0.5",
+                "--loss", "dice", "--unsup_weight", "5",
+                "--validate_iter", "1", "--debug", ""])
+        trainer = train_semi_2d.build(args, "em",
+                                      make_semi_loaders(items, args, 50))
+        model = trainer.state.model
+        loaded, _ = load_state_dict(snaps[kind])
+        differ = [n for n, t in model.state_dict().items()
+                  if not n.startswith("out_conv.")
+                  and not torch.equal(t.cpu(), loaded[n])]
+        check(not differ, f"{key}: the trunk differs from the snapshot: "
+                          f"{differ[:5]}")
+        times = []
+        raw_step = trainer.train_step
+        trainer.train_step = timed_step(raw_step, times)
+        kernels.SWTA_DELTA.launches = 0
+        trainer.run()
+        launches[key] = kernels.SWTA_DELTA.launches
+        steps[key] = len(times)
+        check(launches[key] == 0, f"{key} launched K1 {launches[key]} times")
+        check(all_on(model, on), f"{key}: a model tensor is off {on}")
+        losses, ok = finite_losses(trainer)
+        check(ok, f"{key} losses {losses}")
+        check(os.path.exists(os.path.join(trainer.paths.checkpoints,
+                                          "best_JI.ckpt")),
+              f"{key} wrote no best_JI.ckpt")
+        log(f"(i) {key}: {steps[key]} steps, K1 launches {launches[key]}, "
+            f"step ms {[round(t, 3) for t in times]}, losses {losses}")
+        steady[key] = steady_step_ms(trainer, raw_step)
+        profiled[key] = profile_steps(trainer, raw_step,
+                                      float(np.median(steady[key])))
+        log(f"(i) {key} profile " + json.dumps(profiled[key]))
+
+        targs = test_2d.build_parser().parse_args(
+            ["--device", device, "--path_exp", trainer.paths.run,
+             "--best", "JI", "-n", "unet_s2d", "-b", str(BATCH),
+             "--num_workers", "4"])
+        mean, std = input_stats(dataset_cfg("GlaS"), "image")
+        test_ds = array_dataset_class()(items["val"], mean, std, "test")
+        kernels.SWTA_DELTA.launches = 0
+        metrics = test_2d.run_test(targs, Loader(test_ds, BATCH,
+                                                 num_workers=4))
+        launches[f"test_{key}"] = kernels.SWTA_DELTA.launches
+        check(launches[f"test_{key}"] == 0, f"(i) test {key} launched K1")
+        check(metrics is not None and all(np.isfinite(v)
+                                          for v in metrics.values()),
+              f"(i) test {key} metrics {metrics}")
+        check(0.0 <= metrics["segm/dice"] <= 1.0
+              and 0.0 <= metrics["segm/jaccard"] <= 1.0,
+              f"(i) test {key} metrics out of range: {metrics}")
+        tests[key] = metrics
+        log(f"(i) test {key}: Dice {metrics['segm/dice']:.4f} Jaccard "
+            f"{metrics['segm/jaccard']:.4f} HD95 {metrics['segm/95hd']:.3f}"
+            f" ASSD {metrics['segm/asd']:.3f}")
+    return launches, steady, profiled, steps, tests
+
+
+def profile_summary(profiled):
+    return {k: {"device_ms": v["device_ms"], "busy_share": v["busy_share"],
+                "groups_ms": v["groups_ms"], "top_ms": v["top_ms"][:3]}
+            for k, v in profiled.items()}
+
+
 def summary(steady):
     return {k: {"median": float(np.median(v)), "min": min(v), "max": max(v)}
             for k, v in steady.items()}
@@ -795,6 +1034,22 @@ def main():
         "steady_step_ms": summary({**steady_d, **steady_e}),
         "test": tests}))
 
+    errs_g = phase_unsup_reference(device)
+    l_h, unsup_snaps, steady_h, prof_h, steps_h, prep = \
+        phase_unsup_pretrain(items)
+    l_i, steady_i, prof_i, steps_i, tests_i = phase_unsup_em(items,
+                                                             unsup_snaps)
+    launches.update(l_h)
+    launches.update(l_i)
+    log("unsup_baseline_path " + json.dumps({
+        "launches": {**l_h, **l_i}, "steps": {**steps_h, **steps_i},
+        "steady_step_ms": summary({**steady_h, **steady_i}),
+        "profile": profile_summary({**prof_h, **prof_i}),
+        "superpix_prep_ms": {"median": float(np.median(prep)),
+                             "min": min(prep), "max": max(prep),
+                             "batch": BATCH},
+        "card_vs_cpu_max_abs": errs_g, "test": tests_i}))
+
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -806,8 +1061,10 @@ def main():
         "source": SwtaDeltaKernel.source,
         "replaces": "hebbax/hebb/pallas_kernels.py:93",
         "launches": launches["a"],
-        "launches_by_path": {k: launches[k] for k in
-                             ("a", "urpc_pretrain", "cct_pretrain")},
+        "launches_by_path": {k: launches[k] for k in (
+            "a", "urpc_pretrain", "cct_pretrain", "vae_pretrain",
+            "superpix_pretrain", "superdiff_pretrain", "em_vae",
+            "em_superpix", "test_em_vae", "test_em_superpix")},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],

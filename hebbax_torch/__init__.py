@@ -7,11 +7,14 @@ Same layout as ``hebbax`` so each module's counterpart is easy to find:
   hebb/     HebbSpec, the swta rule, the SWTA-delta kernel dispatcher,
             HConv, gradient merging
   csrc/     hand-written CUDA kernels (built with nvcc at first use)
-  models/   UNet2D, UNetURPC2D, UNetCCT2D, their blocks, CCT
+  models/   UNet2D, UNetURPC2D, UNetCCT2D, the unsupervised baselines
+            (UNetVAE2D, UNetSuperpix2D, DDPMUNet), their blocks, CCT
             perturbations, the network registry
-  ops/      losses, threshold-sweep metrics, HD95/ASSD, dropout, EMA
-  engine/   train state, train/eval steps, the epoch harness, the
-            semi-supervised steps and trainers (EM, UAMT, CPS, URPC, CCT)
+  ops/      losses, threshold-sweep metrics, HD95/ASSD, dropout, EMA,
+            diffusion schedules and losses, superpixel pseudo-masks
+  engine/   train state, train/eval/probe-pretraining steps, the epoch
+            harness, the semi-supervised steps and trainers (EM, UAMT,
+            CPS, URPC, CCT)
   utils/    seeding, run dirs, logging sinks, PNG writer, HBAXCKP1 snapshots
   cli/      ``python -m hebbax_torch.cli.<name>`` entry points
   bridge.py parameter map between a flax variable tree and a state_dict

@@ -4,6 +4,7 @@
 Module names are the same in both packages, so the map is mechanical:
 
   params/<path>/kernel (kh, kw, I, O)  <->  <path>.weight (O, I, kh, kw)
+  params/<path>/kernel (I, O)  (Dense) <->  <path>.weight (O, I)  (Linear)
   params/<path>/bias                   <->  <path>.bias
   params/<path>/scale       (BN)       <->  <path>.weight (1-D)
   batch_stats/<path>/mean              <->  <path>.running_mean
@@ -45,10 +46,13 @@ def from_flax(params, batch_stats=None):
         mod, leaf = ".".join(path[:-1]), path[-1]
         v = np.asarray(v)
         if leaf == "kernel":
-            if v.ndim != 4:
-                raise ValueError(f"{'/'.join(path)}: expected a 2D conv "
-                                 f"kernel, got shape {v.shape}")
-            sd[mod + ".weight"] = _tensor(np.transpose(v, (3, 2, 0, 1)))
+            if v.ndim == 4:
+                sd[mod + ".weight"] = _tensor(np.transpose(v, (3, 2, 0, 1)))
+            elif v.ndim == 2:
+                sd[mod + ".weight"] = _tensor(v.T)
+            else:
+                raise ValueError(f"{'/'.join(path)}: expected a 2D conv or "
+                                 f"Dense kernel, got shape {v.shape}")
         elif leaf == "scale":
             sd[mod + ".weight"] = _tensor(v)
         elif leaf == "bias":
@@ -75,6 +79,8 @@ def to_flax(state_dict):
         if leaf == "weight" and v.ndim == 4:
             _insert(params, path + ("kernel",),
                     np.ascontiguousarray(np.transpose(v, (2, 3, 1, 0))))
+        elif leaf == "weight" and v.ndim == 2:
+            _insert(params, path + ("kernel",), np.ascontiguousarray(v.T))
         elif leaf == "weight" and v.ndim == 1:
             _insert(params, path + ("scale",), v)
         elif leaf == "bias":

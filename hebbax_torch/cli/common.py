@@ -130,21 +130,57 @@ def pretrain_base_network(name):
 def new_model(args, cfg, device, hebb=None):
     """The network named by args, initialised from args.seed (on the CPU,
     so a seed gives the same weights on every device), on ``device``;
-    dropout draws from seed+1 and CCT perturbations from seed+2."""
+    dropout draws from seed+1, CCT perturbations from seed+2 and the VAE
+    latent from seed+3."""
     return get_network(
         args.network, cfg["IN_CHANNELS"], cfg["NUM_CLASSES"],
         init_type=args.init_weights, hebb=hebb, device=device,
         generator=make_generator(args.seed),
         dropout_generator=make_generator(args.seed + 1, device),
-        perturb_generator=make_generator(args.seed + 2, device))
+        perturb_generator=make_generator(args.seed + 2, device),
+        latent_generator=make_generator(args.seed + 3, device))
+
+
+def load_snapshot_into(model, state, reinit=()):
+    """Load a snapshot ``state_dict`` into ``model``, as hebbax's hand-off
+    and flax's tolerance of unused variables do.  Every entry of the
+    model's own ``state_dict`` comes from the snapshot, except the
+    parameters under the ``reinit`` modules (the Hebbian ``exclude`` list,
+    or ``out_conv`` for ``--load_weights``), which keep their fresh values.
+    Snapshot entries of modules the model lacks (a baseline's ``mu``,
+    ``var``, ``reconstr``, ``out_superpix``) are ignored; an entry the
+    model needs that the snapshot lacks, or has in another shape, raises
+    naming it."""
+    param_names = {n for n, _ in model.named_parameters()}
+    own = model.state_dict()
+    loaded = {}
+    for name, fresh in own.items():
+        if name in param_names and is_excluded(
+                tuple(name.rsplit(".", 1)[0].split(".")), tuple(reinit)):
+            loaded[name] = fresh
+            continue
+        if name not in state:
+            raise RuntimeError(
+                f"state_dict: the snapshot has no {name!r}, which "
+                f"{type(model).__name__} needs")
+        if tuple(state[name].shape) != tuple(fresh.shape):
+            raise RuntimeError(
+                f"state_dict: {name!r} is {tuple(state[name].shape)} in the "
+                f"snapshot, {tuple(fresh.shape)} in "
+                f"{type(model).__name__}")
+        loaded[name] = state[name]
+    model.load_state_dict(loaded)
+    return model
 
 
 def build_model_2d(args, cfg, device, load_hebbian=None, load_weights=None):
-    """Model + the pretrain -> fine-tune hand-off: a Hebbian snapshot
-    loads with alpha forced to 0 and its excluded modules' parameters
-    re-initialised (BN statistics load for every module); a plain
-    snapshot loads with the ``out_conv`` head re-initialised.  The load is
-    strict: a snapshot of another network (e.g. ``unet`` into
+    """Model + the pretrain -> fine-tune hand-off
+    (:func:`load_snapshot_into`): a Hebbian snapshot loads with alpha
+    forced to 0 and its excluded modules' parameters re-initialised (BN
+    statistics load for every module); a plain snapshot (e.g. a
+    ``unet_vae`` or ``unet_superpix`` one) loads with the ``out_conv``
+    head re-initialised and the baseline's extra modules dropped.  A
+    snapshot that lacks what the network needs (e.g. ``unet`` into
     ``unet_urpc``) raises rather than loading in part."""
     init_seeds(args.seed)
     hebb, state, meta = None, None, None
@@ -155,13 +191,8 @@ def build_model_2d(args, cfg, device, load_hebbian=None, load_weights=None):
         state, _ = load_state_dict(load_weights)
     model = new_model(args, cfg, device, hebb)
     if state is not None:
-        exclude = hebb.exclude if hebb is not None else ("out_conv",)
-        param_names = {n for n, _ in model.named_parameters()}
-        own = model.state_dict()
-        model.load_state_dict({
-            n: (own[n] if n in param_names and is_excluded(
-                tuple(n.rsplit(".", 1)[0].split(".")), exclude) else t)
-            for n, t in state.items()})
+        load_snapshot_into(model, state, hebb.exclude if hebb is not None
+                           else ("out_conv",))
     return model, hebb
 
 

@@ -28,7 +28,7 @@ from ..utils.checkpoint import load_state_dict
 from ..utils.images import save_preds
 from ..utils.logging import BoxPrinter, write_csv
 from ..utils.seeding import init_seeds, make_generator
-from .common import resolve_device
+from .common import load_snapshot_into, resolve_device
 
 
 def build_parser():
@@ -91,7 +91,9 @@ def run_test(args, loader=None):
     model = get_network(args.network, cfg["IN_CHANNELS"],
                         cfg["NUM_CLASSES"], hebb=hebb, device=device,
                         generator=make_generator(args.seed))
-    model.load_state_dict(state)
+    # entries of modules the network lacks (an EM run from a baseline
+    # snapshot keeps mu / var / reconstr in hebbax) are ignored
+    load_snapshot_into(model, state)
     eval_step = make_eval_step(model, args.network)
 
     if loader is None:

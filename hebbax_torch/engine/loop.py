@@ -2,7 +2,10 @@
 ``SupTrainer``): per-epoch training with streaming metric accumulation,
 display-interval console/TensorBoard/CSV reporting, validation-interval
 evaluation with best-val-Jaccard snapshotting, and final last.ckpt +
-train_log.csv/val_log.csv artifacts.  Data parallelism is not ported yet.
+train_log.csv/val_log.csv artifacts.  Every scalar ``loss*`` entry a step
+returns besides ``loss`` is averaged over the epoch and logged as its own
+``train_log.csv`` column and ``train/<name>`` scalar.  Data parallelism is
+not ported yet.
 """
 
 import time
@@ -58,6 +61,7 @@ class SupTrainer:
         self.val_log = MetricsLog(paths.run, "val_log.csv")
         self.best_val = [0.0, 0.0, 0.0]
         self._epoch_losses = None
+        self._aux_losses = {}
 
     def prep(self, batch):
         out = to_device_batch(batch, self.device)
@@ -74,16 +78,23 @@ class SupTrainer:
 
     def train_epoch(self, epoch, collect_metrics):
         acc = make_accumulator(self.num_classes) if collect_metrics else None
-        # the loss accumulates on the device; one read at epoch end
+        # the losses accumulate on the device; one read at epoch end
         total_loss, n_batches = 0.0, 0
+        aux_totals = {}
         for batch in self.loaders[self.train_key]:
             batch = self.prep(batch)
             self.state, out = self.train_step(self.state, batch)
             total_loss = total_loss + out["loss"]
+            # the pretrainers' scalar loss_unsup / loss_superdiff
+            for k, v in out.items():
+                if k != "loss" and k.startswith("loss") and v.dim() == 0:
+                    aux_totals[k] = aux_totals.get(k, 0.0) + v
             n_batches += 1
             if acc is not None:
                 acc.update(out["logits"], batch["mask"])
-        return float(total_loss) / max(n_batches, 1), acc
+        n = max(n_batches, 1)
+        self._aux_losses = {k: float(v) / n for k, v in aux_totals.items()}
+        return float(total_loss) / n, acc
 
     def validate(self, epoch):
         acc = make_accumulator(self.num_classes)
@@ -135,9 +146,12 @@ class SupTrainer:
                                            epoch + 1)
                 self.writer.add_scalar("train/JI", ev[1], epoch + 1)
                 self.writer.add_scalar("train/DC", ev[2], epoch + 1)
+                for k, v in self._aux_losses.items():
+                    self.writer.add_scalar(f"train/{k}", v, epoch + 1)
                 self.train_log.append(epoch=epoch + 1, loss=train_loss,
                                       thresh=ev[0], JI=ev[1], DC=ev[2],
-                                      seconds=round(epoch_seconds, 3))
+                                      seconds=round(epoch_seconds, 3),
+                                      **self._aux_losses)
 
             if validate:
                 val_loss, ev, preds, names = self.validate(epoch)

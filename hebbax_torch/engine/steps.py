@@ -12,6 +12,10 @@ deltas of the converted convs — and updates the model in place:
 The optimizer holds exactly the trainable parameters.  Like optax, it sees
 a zero gradient (not a skipped one) for a trainable parameter no gradient
 reached, so Adam's and SGD's moments decay the same way.
+
+The unsupervised pretrainers' probe step takes two gradients of one
+forward: the pretext loss over every parameter, the probe's segmentation
+loss over the head only.
 """
 
 import torch
@@ -98,6 +102,54 @@ def make_sup_train_step(model, network: str, criterion,
         state.step += 1
         logits = primary_logits(network, outputs)
         return state, {"loss": loss.detach(), "logits": logits.detach()}
+
+    return step
+
+
+def probe_pretrain_update(state, params, losses, head_names):
+    """One optimizer step of the reference's reset_internal_grads
+    protocol from ``losses = (probe, unsup)`` of one forward: the unsup
+    loss's grads reach every trainable parameter, the probe's only those
+    under ``head_names``.  Two ``torch.autograd.grad`` calls over the one
+    graph; a single backward of probe + unsup would let the probe train
+    the trunk."""
+    probe, unsup = losses
+    names = [n for n, p in params.items() if p.requires_grad]
+    head = [n for n in names if is_excluded(_module_path(n),
+                                            tuple(head_names))]
+    g_unsup = torch.autograd.grad(unsup, [params[n] for n in names],
+                                  retain_graph=True, allow_unused=True)
+    g_probe = torch.autograd.grad(probe, [params[n] for n in head],
+                                  allow_unused=True)
+    grads = {n: g for n, g in zip(names, g_unsup) if g is not None}
+    for n, g in zip(head, g_probe):
+        if g is not None:
+            grads[n] = g if n not in grads else grads[n] + g
+    apply_grads(state.optimizer, state.schedule, state.step,
+                {params[n]: g for n, g in grads.items()})
+    state.step += 1
+    return state
+
+
+def make_probe_pretrain_step(model, network: str, criterion, unsup_loss,
+                             head_names=("out_conv",)):
+    """Unsupervised pretraining with a supervised probe head, ``(state,
+    batch) -> (state, {'loss', 'loss_unsup', 'logits'})``: the probe's
+    segmentation loss (``loss``) on the primary output trains only the
+    ``head_names`` modules, ``unsup_loss(outputs, batch)`` trains every
+    parameter (:func:`probe_pretrain_update`)."""
+    params = dict(model.named_parameters())
+
+    def step(state, batch):
+        model.train()
+        outputs = model(batch["image"])
+        logits = primary_logits(network, outputs)
+        probe = criterion(logits, batch["mask"])
+        unsup = unsup_loss(outputs, batch)
+        state = probe_pretrain_update(state, params, (probe, unsup),
+                                      head_names)
+        return state, {"loss": probe.detach(), "loss_unsup": unsup.detach(),
+                       "logits": logits.detach()}
 
     return step
 

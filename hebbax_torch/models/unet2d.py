@@ -6,15 +6,18 @@ mechanical.
   ConvBlockLeaky] with channels [32,64,128,256], dropout [.1,.2,.3,.5].
 * Decoder: 4 UpBlocks, each = 1x1 conv + bilinear(align_corners=True) 2x
   upsample + concat(skip, up) + two conv3x3-BN-ReLU (no transpose convs).
-* Heads: UNet2D's MLPHead, three 3x3 convs with ReLU+Dropout(0.5)
-  (hebbax's linear_probe / multiple_layers variants wait for the networks
-  that use them); UNetURPC2D's four single-conv deep-supervision heads;
-  UNetCCT2D's single conv after a decoder shared by four passes.
+* Heads: UNet2D's MLPHead, three 3x3 convs with ReLU+Dropout(0.5);
+  UNetURPC2D's four single-conv deep-supervision heads; UNetCCT2D's
+  single conv after a decoder shared by four passes; the unsupervised
+  baselines' 1x1 linear probes beside their pretext heads (UNetVAE2D's
+  reparameterized bottleneck and reconstruction, UNetSuperpix2D's
+  2-class superpixel head).
 
 Every conv is an HConv; a HebbSpec passed to the model makes the
 non-excluded ones Hebbian.  ``generator`` (CPU) draws the initial
 parameters, so a seed gives the same model on every device;
-``dropout_generator`` (on the model's device) draws the dropout masks.
+``dropout_generator`` (on the model's device) draws the dropout masks;
+``latent_generator`` (likewise) UNetVAE2D's reparameterization noise.
 """
 
 from typing import Optional
@@ -139,13 +142,20 @@ class Decoder2D(nn.Module):
 
 
 class MLPHead(nn.Module):
-    """3-conv segmentation head with ReLU+Dropout(0.5)."""
+    """3-conv segmentation head with ReLU+Dropout(0.5); a single
+    ``conv_out`` when multiple_layers=False.  ``kernel`` is 3, or 1 for
+    the baselines' linear probes."""
 
-    def __init__(self, in_ch, n_cls, init_type="kaiming", device=None,
-                 generator=None, dropout_generator=None):
+    def __init__(self, in_ch, n_cls, kernel=3, multiple_layers=True,
+                 init_type="kaiming", device=None, generator=None,
+                 dropout_generator=None):
         super().__init__()
-        kw = dict(kernel_size=3, padding=1, init_type=init_type,
-                  device=device, generator=generator)
+        kw = dict(kernel_size=kernel, padding=kernel // 2,
+                  init_type=init_type, device=device, generator=generator)
+        self.multiple_layers = multiple_layers
+        if not multiple_layers:
+            self.conv_out = HConv(in_ch, n_cls, **kw)
+            return
         self.conv1 = HConv(in_ch, in_ch * 4, **kw)
         self.dropout1 = Dropout(0.5, dropout_generator)
         self.conv2 = HConv(in_ch * 4, in_ch * 2, **kw)
@@ -153,8 +163,9 @@ class MLPHead(nn.Module):
         self.conv_out = HConv(in_ch * 2, n_cls, **kw)
 
     def forward(self, x):
-        x = self.dropout1(F.relu(self.conv1(x)))
-        x = self.dropout2(F.relu(self.conv2(x)))
+        if self.multiple_layers:
+            x = self.dropout1(F.relu(self.conv1(x)))
+            x = self.dropout2(F.relu(self.conv2(x)))
         return self.conv_out(x)
 
 
@@ -268,3 +279,76 @@ class UNetCCT2D(nn.Module):
             feats, lambda kind: perturb_features(feats, kind,
                                                  draws=draws[kind]),
             self.decode)
+
+
+class UNetVAE2D(nn.Module):
+    """Backbone + 1x1 ``mu`` / ``var`` (256 -> 256) on the bottleneck, the
+    reparameterized latent ``eps * exp(0.5 * log_var) + mu`` into the
+    decoder in place of the bottleneck, then a 1x1 three-layer probe head
+    ``out_conv`` and a 1x1 ``reconstr`` (16 -> in_channels).  Returns
+    {'output', 'mu', 'log_var', 'reconstr'}.
+
+    eps is drawn from ``latent_generator`` on every forward, eval
+    included, through :meth:`draw_latent` (an instance may replace it, or
+    a caller pass ``eps``); without a generator eps is 0.
+    """
+
+    def __init__(self, in_channels: int, n_cls: int,
+                 hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
+                 device=None, generator=None, dropout_generator=None,
+                 latent_generator=None):
+        super().__init__()
+        kw = dict(init_type=init_type, device=device, generator=generator)
+        f = FEATURES
+        self.encoder = Encoder2D(in_channels,
+                                 dropout_generator=dropout_generator, **kw)
+        self.mu = HConv(f[4], 256, kernel_size=1, **kw)
+        self.var = HConv(f[4], 256, kernel_size=1, **kw)
+        self.main_decoder = Decoder2D(**kw)
+        self.out_conv = MLPHead(f[0], n_cls, kernel=1,
+                                dropout_generator=dropout_generator, **kw)
+        self.reconstr = HConv(f[0], in_channels, kernel_size=1, **kw)
+        self.latent_generator = latent_generator
+        self.hebb = hebb
+        bind_paths(self, hebb)
+
+    def draw_latent(self, std):
+        if self.latent_generator is None:
+            return torch.zeros_like(std)
+        return torch.randn(std.shape, dtype=std.dtype, device=std.device,
+                           generator=self.latent_generator)
+
+    def forward(self, x, eps=None):
+        feats = self.encoder(x)
+        mu = self.mu(feats[-1])
+        log_var = self.var(feats[-1])
+        std = torch.exp(0.5 * log_var)
+        if eps is None:
+            eps = self.draw_latent(std)
+        dec = self.main_decoder(feats[:4] + [eps * std + mu])
+        return {"output": self.out_conv(dec), "mu": mu, "log_var": log_var,
+                "reconstr": self.reconstr(dec)}
+
+
+class UNetSuperpix2D(nn.Module):
+    """Backbone + a single 1x1 probe ``out_conv`` and a 2-class 1x1
+    ``out_superpix`` head; returns (seg, superpix)."""
+
+    def __init__(self, in_channels: int, n_cls: int,
+                 hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
+                 device=None, generator=None, dropout_generator=None):
+        super().__init__()
+        kw = dict(init_type=init_type, device=device, generator=generator)
+        f = FEATURES
+        self.encoder = Encoder2D(in_channels,
+                                 dropout_generator=dropout_generator, **kw)
+        self.main_decoder = Decoder2D(**kw)
+        self.out_conv = MLPHead(f[0], n_cls, kernel=1, multiple_layers=False,
+                                **kw)
+        self.out_superpix = HConv(f[0], 2, kernel_size=1, **kw)
+        self.hebb = hebb
+        bind_paths(self, hebb)
+
+    def forward(self, x):
+        dec = self.main_decoder(self.encoder(x))
+        return self.out_conv(dec), self.out_superpix(dec)

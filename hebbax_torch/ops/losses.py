@@ -72,6 +72,25 @@ def cross_entropy_loss(logits, target, ignore_index=-1):
     return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1.0)
 
 
+def kl_loss(mean, std):
+    """|E[m^2]| + |E[s^2]| - |E[log s^2]| - 1 (VAE KL surrogate)."""
+    return (torch.mean(mean * mean) + torch.mean(std * std)
+            - torch.mean(torch.log(std * std)) - 1.0)
+
+
+def elbo_metric(vae_outputs, targets, beta=1.0, weight=None):
+    """MSE reconstruction + beta * KLD, the VAE pretraining objective; the
+    KLD sums over the channel (latent) axis, dim 1, and averages over the
+    batch and space.  weight: optional per-sample 0/1 validity vector."""
+    mu, log_var = vae_outputs["mu"], vae_outputs["log_var"]
+    reconstr_loss = weighted_mean((vae_outputs["reconstr"] - targets) ** 2,
+                                  weight)
+    kld = weighted_mean(
+        -0.5 * torch.sum(1 + log_var - mu ** 2 - torch.exp(log_var), dim=1),
+        weight)
+    return reconstr_loss + beta * kld
+
+
 def segmentation_loss(loss="dice"):
     """Loss factory: dice or cross-entropy (the aux-weighted variants wait
     for the multi-output networks)."""

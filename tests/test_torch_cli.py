@@ -148,6 +148,8 @@ def test_port_imports_no_jax():
         "import hebbax_torch.cli.train_sup_2d, hebbax_torch.cli.test_2d\n"
         "import hebbax_torch.cli.train_semi_2d, hebbax_torch.engine.semi\n"
         "import hebbax_torch.ops.ema, hebbax_torch.config.ramps\n"
+        "import hebbax_torch.cli.pretrain_unsup_2d, hebbax_torch.models.ddpm\n"
+        "import hebbax_torch.ops.diffusion, hebbax_torch.ops.superpix\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'hebbax'))\n"
