@@ -64,9 +64,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
    sweep's flags (the loaded trunk equal to the snapshot before the first
    step), timed like (e), then ``test_2d --best JI`` on each; one
    ``unsup_baseline_path`` line carries their numbers;
-7. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
-   urpc_pretrain, cct_pretrain and the paths of 6), the card's name and
-   power limit, and last ``{"ok": true, "device": {...}}``.
+7. the 3D Hebbian bootstrap on full-width ``unet3d`` (64 initial
+   features, a 1024-channel bottleneck) over synthetic NRRD volumes
+   (``scripts/make_synth_data.py::make_3d``'s generator, copied; 4 train
+   and 2 val volumes of 128x128x96, written by the port under
+   ``build/chip_smoke/``), none of which reaches K1 (every 3D delta is the
+   composed rule; K1 launches 0 on each path): (j) at batch 2, 32^3, a
+   training forward (swta_t, K=50, ``conv`` excluded) on the card against
+   the same weights on the CPU (logits within 1e-4, the 22 deltas within
+   1e-3 of their site's max|delta|), then at each of the 22 sites, on the
+   tensors of a real training forward at batch 1, 96x96x80, the composed
+   delta timed with CUDA events beside its bounds (FLOPs over the float32
+   SIMT peak, bytes over HBM); (k) ``pretrain_hebbian_unsup_3d -n unet3d``
+   (swta_t, K=50, the sweep's exclude list, Adam, lr 1e-6, batch 1, patch
+   96x96x80, 2 epochs, warmup 1): finite losses, the Hebbian kernels
+   ``encoder.encoder1.conv1`` and ``decoder.upconv1`` unchanged in epoch
+   0 and changed in epoch 1, the head trained, ``last.ckpt`` written; (l)
+   ``train_sup_3d -n unet3d --load_hebbian_weights`` (k)'s snapshot at
+   regime 50 (SGD, lr 0.1): the trunk equal to the snapshot before the
+   first step, ``conv`` re-initialised, finite losses, ``best_JI.ckpt``;
+   (k) and (l) then time 10 steady and 3 profiled steps; (m) ``test_3d
+   --hebbian_pretrain 1 --postprocessing True`` with 96x96x80 patches
+   overlapping by 48x48x40 on (l)'s snapshot: Dice and Jaccard in [0, 1],
+   HD95 and ASSD finite unless no volume had a non-empty prediction, and
+   the seconds per volume of the slider and, apart, of post-processing +
+   distances; one ``hebbian_3d_path`` line carries (j)–(m);
+8. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
+   urpc_pretrain, cct_pretrain and the paths of 6 and 7), the card's name
+   and power limit, and last ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
 and writes only under ``build/`` beside this file.
@@ -88,6 +113,9 @@ PEAK_F32_FLOP_PER_S = 67e12     # H100 SXM float32, no tensor cores
 PEAK_TF32_FLOP_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
 TF32_PASSES = 3                 # 3xTF32: hi*hi + hi*lo + lo*hi
 BATCH, SIZE, N_TRAIN, N_VAL = 32, 128, 64, 16
+NET_3D, VOLUME, PATCH, OVERLAP = ("unet3d", (128, 128, 96), (96, 96, 80),
+                                  (48, 48, 40))
+N_TRAIN_3D, N_VAL_3D = 4, 2
 K_TEMP = 50.0
 TOL = 1e-4                      # max abs error / max |plain|
 
@@ -982,6 +1010,316 @@ def phase_unsup_em(items, snaps, device="0"):
     return launches, steady, profiled, steps, tests
 
 
+# -- 7: the 3D Hebbian bootstrap on unet3d -----------------------------------
+
+EXCLUDE_3D = ("conv", "dsv1", "dsv2", "dsv3", "dsv4", "out_conv",
+              "out_sdf", "out_seg")
+
+
+def synth_volumes(root, n_train, n_val, shape, seed=0):
+    """``scripts/make_synth_data.py::make_3d``'s generator (image and mask,
+    no SDF maps), written by the port's NRRD writer."""
+    from hebbax_torch.data.nrrd_io import write_nrrd
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        for sub in ("image", "mask"):
+            os.makedirs(os.path.join(root, split, sub), exist_ok=True)
+        for i in range(n):
+            vol = rng.normal(100, 20, shape).astype(np.float32)
+            xx, yy, zz = np.mgrid[: shape[0], : shape[1], : shape[2]]
+            c = [s // 2 for s in shape]
+            r = min(shape) // 4
+            mask = (((xx - c[0]) ** 2 + (yy - c[1]) ** 2
+                     + (zz - c[2]) ** 2) < r * r).astype(np.uint8) * 255
+            vol[mask > 0] += 60
+            name = f"v{i}.nrrd"
+            write_nrrd(os.path.join(root, split, "image", name), vol)
+            write_nrrd(os.path.join(root, split, "mask", name), mask)
+    return root
+
+
+def hebbian_unet3d(device, seed=0):
+    from hebbax_torch.hebb.spec import HebbSpec
+    from hebbax_torch.models import get_network
+    from hebbax_torch.utils.seeding import make_generator
+
+    spec = HebbSpec(mode="swta_t", k=K_TEMP, exclude=("conv",))
+    return get_network(NET_3D, 1, 2, hebb=spec, device=device,
+                       generator=make_generator(seed))
+
+
+def bounds_3d(mod, w, x, y):
+    """Bounds (ms) of one composed 3D delta: its FLOPs (2 per
+    multiply-add of the unfold correlation) over the float32 SIMT peak,
+    and its bytes (x, y and w read once, the delta written once) over
+    HBM."""
+    n, i = x.shape[:2]
+    o = y.shape[1]
+    taps = int(np.prod(w.shape[2:]))
+    # a forward conv correlates every output voxel with I*taps inputs; a
+    # transpose conv every input voxel with O*taps outputs
+    voxels = n * int(np.prod((x if mod.transpose else y).shape[2:]))
+    ops = 2.0 * voxels * i * o * taps
+    nbytes = 4.0 * (x.numel() + y.numel() + 2 * w.numel())
+    t_f32 = ops / PEAK_F32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"f32": t_f32, "bytes": t_bytes, "ms": max(t_f32, t_bytes),
+            "by": "operations" if t_f32 >= t_bytes else "bytes"}
+
+
+def phase_3d_reference(device):
+    """(j) Training forward of full-width unet3d at batch 2, 32^3 on the
+    card against the same weights on the CPU: no K1 launch (every 3D
+    delta is the composed rule), logits within 1e-4, deltas within 1e-3
+    of each site's max|delta| (as in 3); then the composed delta at each
+    of the 22 sites at batch 1 and the full patch, timed beside its
+    bounds."""
+    import torch
+    from hebbax_torch.hebb import kernels, rules
+    from hebbax_torch.hebb.surgery import pop_deltas
+
+    gpu, cpu = hebbian_unet3d(device, seed=3), hebbian_unet3d("cpu", seed=3)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (2, 1, 32, 32, 32)).astype(np.float32))
+    for m in (gpu, cpu):
+        m.train()
+    before = kernels.SWTA_DELTA.launches
+    with torch.no_grad():
+        out_g = gpu(x.to(device)).cpu()
+        out_c = cpu(x)
+    check(kernels.SWTA_DELTA.launches == before,
+          "the card's 3D training forward launched K1")
+    dg, dc = pop_deltas(gpu), pop_deltas(cpu)
+    check(set(dg) == set(dc) and len(dg) == 22,
+          f"3D delta sites differ: {len(dg)} vs {len(dc)}")
+    logit_err = float((out_g - out_c).abs().max())
+    check(logit_err <= 1e-4, f"unet3d logits card vs CPU differ by "
+                             f"{logit_err}")
+    worst = max(float((dg[n].cpu() - dc[n]).abs().max())
+                / float(dc[n].abs().max()) for n in dc)
+    check(worst <= 1e-3, f"unet3d deltas card vs CPU differ by {worst} of "
+                         f"scale")
+    log(f"(j) small-input reference unet3d: logits max abs diff "
+        f"{logit_err:.3e}, deltas max diff / scale {worst:.3e}, 0 launches")
+    del cpu, out_c, dc
+
+    images = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (1, 1) + PATCH).astype(np.float32)).to(device)
+    sites = capture_sites(gpu, images)
+    check(len(sites) == 22, f"expected 22 unet3d sites, got {len(sites)}")
+    rows = []
+    log(f"{'site':30s} {'x shape':>24s} {'O':>5s} {'ms':>9s} "
+        f"{'f32_ms':>8s} {'byte_ms':>8s} {'share':>6s}")
+    for name, w, xs, ys, _ in sites:
+        mod = gpu.get_submodule(name)
+
+        def delta(mod=mod, w=w, xs=xs, ys=ys):
+            return rules.compute_delta(mod.spec, w, xs, ys, mod.padding,
+                                       mod.transpose, mod.stride)
+
+        before = kernels.SWTA_DELTA.launches
+        d = delta()
+        torch.cuda.synchronize()
+        check(kernels.SWTA_DELTA.launches == before,
+              f"{name}: a 3D delta launched K1")
+        check(bool(torch.isfinite(d).all()), f"{name}: non-finite delta")
+        ms = cuda_time_ms(delta, warmup=1, iters=5)
+        b = bounds_3d(mod, w, xs, ys)
+        rows.append(dict(site=name, transpose=mod.transpose,
+                         x=list(xs.shape), o=ys.shape[1], ms=ms,
+                         bound_ms=b["ms"], bound_by=b["by"],
+                         bound_f32_ms=b["f32"], bound_bytes_ms=b["bytes"]))
+        log(f"{name:30s} {str(tuple(xs.shape)):>24s} {ys.shape[1]:5d} "
+            f"{ms:9.3f} {b['f32']:8.3f} {b['bytes']:8.3f} "
+            f"{b['ms'] / ms:6.1%}")
+    del sites, gpu
+    torch.cuda.empty_cache()
+    return {"logits_max_abs": logit_err, "delta_max_rel": worst,
+            "sites": rows}
+
+
+def cli_base_3d(device, data_root):
+    return ["--device", device, "--path_dataset", data_root,
+            "--dataset_name", "Atrial", "--path_root_exp", RUN_DIR,
+            "-n", NET_3D, "-b", "1", "-e", "2", "-w", "1",
+            "--patch_size", ",".join(str(p) for p in PATCH),
+            "--num_workers", "4"]
+
+
+def phase_3d_pretrain(data_root, device="0"):
+    """(k) pretrain_hebbian_unsup_3d on unet3d with the sweep's flags:
+    no K1 launch, finite losses, the Hebbian kernels unchanged in epoch 0
+    (lr 0) and changed in epoch 1, the head trained, last.ckpt; then
+    steady and profiled steps."""
+    import torch
+    from hebbax_torch.cli import common3d
+    from hebbax_torch.cli import pretrain_hebbian_unsup_3d as pretrain
+    from hebbax_torch.hebb import kernels
+
+    on = "cpu" if device == "cpu" else "cuda"
+    args = pretrain.add_args(common3d.base_parser_3d()).parse_args(
+        cli_base_3d(device, data_root) + [
+            "--hebb_mode", "swta_t", "--hebb_inv_temp", str(int(K_TEMP)),
+            "--exclude", *EXCLUDE_3D, "--optimizer", "adam", "-l", "1e-6"])
+    trainer = pretrain.build(args)
+    model = trainer.state.model
+    watch = ("encoder.encoder1.conv1.weight", "decoder.upconv1.weight")
+    w0 = {n: model.state_dict()[n].detach().clone() for n in watch}
+    head0 = model.conv.weight.detach().clone()
+    times, snaps = [], []
+    raw_step = trainer.train_step
+
+    def watched(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = raw_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        sd = state.model.state_dict()
+        snaps.append({n: sd[n].detach().clone() for n in watch})
+        return state, out
+
+    trainer.train_step = watched
+    kernels.SWTA_DELTA.launches = 0
+    trainer.run()
+    launches = kernels.SWTA_DELTA.launches
+    per_epoch = len(trainer.loaders["train"])
+    check(len(times) == 2 * per_epoch, f"(k) ran {len(times)} steps")
+    check(launches == 0, f"(k) launched K1 {launches} times")
+    for n in watch:
+        check(all(torch.equal(s[n], w0[n]) for s in snaps[:per_epoch]),
+              f"(k) {n} changed in epoch 0 (lr 0)")
+        check(not torch.equal(snaps[-1][n], w0[n]),
+              f"(k) {n} did not change in epoch 1")
+    check(not torch.equal(model.conv.weight, head0),
+          "(k) the head did not train")
+    check(all_on(model, on), f"(k) a model tensor is off {on}")
+    losses, ok = finite_losses(trainer)
+    check(ok, f"(k) losses {losses}")
+    snap = os.path.join(trainer.paths.checkpoints, "last.ckpt")
+    check(os.path.exists(snap), "(k) wrote no last.ckpt")
+    log(f"(k) pretrain_3d: {len(times)} steps, K1 launches {launches}, "
+        f"step ms {[round(t, 3) for t in times]}, losses {losses}")
+    steady = steady_step_ms(trainer, raw_step)
+    profiled = profile_steps(trainer, raw_step, float(np.median(steady)))
+    log("(k) profile " + json.dumps(profiled))
+    return launches, snap, len(times), times, steady, profiled
+
+
+def phase_3d_finetune(data_root, snap, device="0"):
+    """(l) train_sup_3d --load_hebbian_weights at regime 50 with the base
+    parser's SGD lr 0.1: the trunk equal to the snapshot before the first
+    step, conv re-initialised, no K1 launch, finite losses, best_JI.ckpt;
+    then steady and profiled steps."""
+    import torch
+    from hebbax_torch.cli import common3d
+    from hebbax_torch.cli import train_sup_3d
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.hebb.layers import transposed_paths
+    from hebbax_torch.utils.checkpoint import load_state_dict
+
+    on = "cpu" if device == "cpu" else "cuda"
+    args = train_sup_3d.add_args(common3d.base_parser_3d()).parse_args(
+        cli_base_3d(device, data_root) + [
+            "--load_hebbian_weights", snap, "--hebb_inv_temp",
+            str(int(K_TEMP)), "--regime", "50"])
+    trainer = train_sup_3d.build(args)
+    model = trainer.state.model
+    loaded, _ = load_state_dict(snap, transposed_paths(model))
+    sd = model.state_dict()
+    differ = [n for n, t in sd.items() if not n.startswith("conv.")
+              and not torch.equal(t.cpu(), loaded[n])]
+    check(not differ, f"(l) the trunk differs from the snapshot: "
+                      f"{differ[:5]}")
+    check(not torch.equal(sd["conv.weight"].cpu(), loaded["conv.weight"]),
+          "(l) conv was not re-initialised")
+    times = []
+    raw_step = trainer.train_step
+    trainer.train_step = timed_step(raw_step, times)
+    kernels.SWTA_DELTA.launches = 0
+    trainer.run()
+    launches = kernels.SWTA_DELTA.launches
+    check(launches == 0, f"(l) launched K1 {launches} times")
+    check(all_on(model, on), f"(l) a model tensor is off {on}")
+    losses, ok = finite_losses(trainer)
+    check(ok, f"(l) losses {losses}")
+    check(os.path.exists(os.path.join(trainer.paths.checkpoints,
+                                      "best_JI.ckpt")),
+          "(l) wrote no best_JI.ckpt")
+    log(f"(l) sup_3d: {len(times)} steps, K1 launches {launches}, step ms "
+        f"{[round(t, 3) for t in times]}, losses {losses}")
+    steady = steady_step_ms(trainer, raw_step)
+    profiled = profile_steps(trainer, raw_step, float(np.median(steady)))
+    log("(l) profile " + json.dumps(profiled))
+    return launches, trainer.paths.run, len(times), times, steady, profiled
+
+
+def phase_3d_test(data_root, run, device="0"):
+    """(m) test_3d on (l)'s best snapshot, post-processed: no K1 launch,
+    Dice / Jaccard in [0, 1], HD95 / ASSD finite unless no volume had a
+    non-empty prediction (then NaN, and said so)."""
+    from hebbax_torch.cli import test_3d
+    from hebbax_torch.data.nrrd_io import read_nrrd
+    from hebbax_torch.hebb import kernels
+
+    args = test_3d.build_parser().parse_args(
+        ["--device", device, "--path_exp", run, "--path_dataset", data_root,
+         "-n", NET_3D, "--hebbian_pretrain", "1", "--postprocessing",
+         "True", "--patch_size", ",".join(str(p) for p in PATCH),
+         "--patch_overlap", ",".join(str(p) for p in OVERLAP)])
+    kernels.SWTA_DELTA.launches = 0
+    res = test_3d.run_test(args)
+    launches = kernels.SWTA_DELTA.launches
+    check(launches == 0, f"(m) launched K1 {launches} times")
+    check(0.0 <= res["dice"] <= 1.0 and 0.0 <= res["jaccard"] <= 1.0,
+          f"(m) metrics out of range: {res}")
+    pp = os.path.join(run, "test_seg_preds_postprocessed")
+    nonempty = [n for n in sorted(os.listdir(pp))
+                if read_nrrd(os.path.join(pp, n))[0].any()]
+    if nonempty:
+        check(np.isfinite(res["hd"]) and np.isfinite(res["sd"]),
+              f"(m) HD95/ASSD not finite with non-empty predictions "
+              f"{nonempty}: {res}")
+    else:
+        check(np.isnan(res["hd"]) and np.isnan(res["sd"]),
+              f"(m) distances of empty predictions: {res}")
+    log(f"(m) test_3d: Dice {res['dice']:.4f} Jaccard {res['jaccard']:.4f} "
+        f"HD95 {res['hd']:.3f} ASSD {res['sd']:.3f} (non-empty predictions "
+        f"{nonempty}; NaN distances mean none); seconds per volume: slider "
+        f"{res['seconds']['slider']:.3f}, post-processing + distances "
+        f"{res['seconds']['postprocess_eval']:.3f}")
+    return launches, dict(res, nonempty=nonempty)
+
+
+def phase_3d(card, device="0"):
+    """Phase 7: (j)-(m) (``card``: the torch device of (j), ``device``
+    the CLIs' flag); returns the launches by path and the
+    ``hebbian_3d_path`` record."""
+    data_root = synth_volumes(os.path.join(RUN_DIR, "data3d", "Atrial"),
+                              N_TRAIN_3D, N_VAL_3D, VOLUME)
+    ref = phase_3d_reference(card)
+    l_k, snap, steps_k, times_k, steady_k, prof_k = phase_3d_pretrain(
+        data_root, device)
+    l_l, run, steps_l, times_l, steady_l, prof_l = phase_3d_finetune(
+        data_root, snap, device)
+    l_m, test = phase_3d_test(data_root, run, device)
+    launches = {"pretrain_3d": l_k, "sup_3d": l_l, "test_3d": l_m}
+    record = {
+        "launches": launches, "steps": {"k": steps_k, "l": steps_l},
+        "step_ms": {"k": times_k, "l": times_l},
+        "steady_step_ms": summary({"k": steady_k, "l": steady_l}),
+        "profile": profile_summary({"k": prof_k, "l": prof_l}),
+        "card_vs_cpu": {k: ref[k] for k in ("logits_max_abs",
+                                            "delta_max_rel")},
+        "delta_sites": ref["sites"],
+        "delta_sites_ms": sum(r["ms"] for r in ref["sites"]),
+        "delta_sites_bound_ms": sum(r["bound_ms"] for r in ref["sites"]),
+        "test": test, "patch": list(PATCH), "volume": list(VOLUME)}
+    return launches, record
+
+
 def profile_summary(profiled):
     return {k: {"device_ms": v["device_ms"], "busy_share": v["busy_share"],
                 "groups_ms": v["groups_ms"], "top_ms": v["top_ms"][:3]}
@@ -1050,6 +1388,10 @@ def main():
                              "batch": BATCH},
         "card_vs_cpu_max_abs": errs_g, "test": tests_i}))
 
+    l_3d, record_3d = phase_3d(device)
+    launches.update(l_3d)
+    log("hebbian_3d_path " + json.dumps(record_3d))
+
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -1064,7 +1406,8 @@ def main():
         "launches_by_path": {k: launches[k] for k in (
             "a", "urpc_pretrain", "cct_pretrain", "vae_pretrain",
             "superpix_pretrain", "superdiff_pretrain", "em_vae",
-            "em_superpix", "test_em_vae", "test_em_superpix")},
+            "em_superpix", "test_em_vae", "test_em_superpix",
+            "pretrain_3d", "sup_3d", "test_3d")},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],

@@ -3,7 +3,9 @@
 
 Module names are the same in both packages, so the map is mechanical:
 
-  params/<path>/kernel (kh, kw, I, O)  <->  <path>.weight (O, I, kh, kw)
+  params/<path>/kernel (*k, I, O)      <->  <path>.weight (O, I, *k)
+  params/<path>/kernel (*k, I, O)  (transpose conv)
+                                       <->  <path>.weight (I, O, *k)
   params/<path>/kernel (I, O)  (Dense) <->  <path>.weight (O, I)  (Linear)
   params/<path>/bias                   <->  <path>.bias
   params/<path>/scale       (BN)       <->  <path>.weight (1-D)
@@ -13,6 +15,14 @@ Module names are the same in both packages, so the map is mechanical:
 e.g. ``encoder/in_conv/conv1/kernel`` is ``encoder.in_conv.conv1.weight``.
 Both directions work on numpy trees (the flax side) and CPU tensors (the
 torch side).
+
+A 5-D kernel's layout cannot come from its shape: a conv's ``(O, I, *k)``
+and a transpose conv's ``(I, O, *k)`` look alike, and at I == O a wrong
+guess would load silently transposed.  So ``transposed`` — the dotted
+module paths of the model's transpose convs
+(:func:`hebbax_torch.hebb.layers.transposed_paths`) — decides it; a 5-D
+kernel with ``transposed=None`` raises.  Without it a 4-D kernel is a 2D
+conv's: the 2D networks have no transpose conv.
 """
 
 import numpy as np
@@ -39,19 +49,33 @@ def _tensor(a):
     return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
-def from_flax(params, batch_stats=None):
-    """flax ``params`` / ``batch_stats`` trees -> state_dict."""
+def _kernel_perm(name, ndim, transposed):
+    """The axis permutation flax (*k, I, O) -> torch for a conv kernel of
+    rank ``ndim`` under the module ``name``."""
+    if ndim == 5 and transposed is None:
+        raise ValueError(
+            f"{name}: a 5-D kernel's layout needs the model's transpose "
+            f"conv paths (pass transposed=transposed_paths(model))")
+    nd = ndim - 2
+    io = (nd, nd + 1) if name in (transposed or ()) else (nd + 1, nd)
+    return io + tuple(range(nd))
+
+
+def from_flax(params, batch_stats=None, transposed=None):
+    """flax ``params`` / ``batch_stats`` trees -> state_dict;
+    ``transposed``: the dotted paths of the transpose convs."""
     sd = {}
     for path, v in _flatten(params).items():
         mod, leaf = ".".join(path[:-1]), path[-1]
         v = np.asarray(v)
         if leaf == "kernel":
-            if v.ndim == 4:
-                sd[mod + ".weight"] = _tensor(np.transpose(v, (3, 2, 0, 1)))
+            if v.ndim in (4, 5):
+                sd[mod + ".weight"] = _tensor(np.transpose(
+                    v, _kernel_perm(mod, v.ndim, transposed)))
             elif v.ndim == 2:
                 sd[mod + ".weight"] = _tensor(v.T)
             else:
-                raise ValueError(f"{'/'.join(path)}: expected a 2D conv or "
+                raise ValueError(f"{'/'.join(path)}: expected a conv or "
                                  f"Dense kernel, got shape {v.shape}")
         elif leaf == "scale":
             sd[mod + ".weight"] = _tensor(v)
@@ -68,17 +92,19 @@ def from_flax(params, batch_stats=None):
     return sd
 
 
-def to_flax(state_dict):
-    """state_dict -> (params, batch_stats) numpy trees in flax layout."""
+def to_flax(state_dict, transposed=None):
+    """state_dict -> (params, batch_stats) numpy trees in flax layout;
+    ``transposed``: the dotted paths of the transpose convs."""
     params, stats = {}, {}
     for name, t in state_dict.items():
         mod, leaf = name.rsplit(".", 1)
         path = tuple(mod.split("."))
         v = (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
              else np.asarray(t))
-        if leaf == "weight" and v.ndim == 4:
+        if leaf == "weight" and v.ndim in (4, 5):
+            perm = np.argsort(_kernel_perm(mod, v.ndim, transposed))
             _insert(params, path + ("kernel",),
-                    np.ascontiguousarray(np.transpose(v, (2, 3, 1, 0))))
+                    np.ascontiguousarray(np.transpose(v, perm)))
         elif leaf == "weight" and v.ndim == 2:
             _insert(params, path + ("kernel",), np.ascontiguousarray(v.T))
         elif leaf == "weight" and v.ndim == 1:

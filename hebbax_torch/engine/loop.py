@@ -2,7 +2,8 @@
 ``SupTrainer``): per-epoch training with streaming metric accumulation,
 display-interval console/TensorBoard/CSV reporting, validation-interval
 evaluation with best-val-Jaccard snapshotting, and final last.ckpt +
-train_log.csv/val_log.csv artifacts.  Every scalar ``loss*`` entry a step
+train_log.csv/val_log.csv artifacts (kernel layouts in the snapshot
+follow the model's module types).  Every scalar ``loss*`` entry a step
 returns besides ``loss`` is averaged over the epoch and logged as its own
 ``train_log.csv`` column and ``train/<name>`` scalar.  Data parallelism is
 not ported yet.
@@ -13,6 +14,7 @@ import time
 import numpy as np
 import torch
 
+from ..hebb.layers import transposed_paths
 from ..ops.metrics import make_accumulator
 from ..utils import images as image_utils
 from ..utils.checkpoint import save_snapshot
@@ -25,6 +27,18 @@ def to_device_batch(batch, device):
     out = dict(batch)
     out["image"] = torch.from_numpy(np.ascontiguousarray(
         batch["image"])).permute(0, 3, 1, 2).contiguous().to(device)
+    if "mask" in batch:
+        out["mask"] = torch.from_numpy(np.asarray(batch["mask"])).to(
+            device=device, dtype=torch.int64)
+    return out
+
+
+def to_device_batch_3d(batch, device):
+    """Host patch batch ((B, X, Y, Z) images, int masks) -> device tensors
+    ((B, 1, X, Y, Z) float32 images, int64 masks); the patch ids and
+    locations stay on the host."""
+    out = {"image": torch.from_numpy(np.ascontiguousarray(
+        batch["image"], dtype=np.float32))[:, None].to(device)}
     if "mask" in batch:
         out["mask"] = torch.from_numpy(np.asarray(batch["mask"])).to(
             device=device, dtype=torch.int64)
@@ -70,11 +84,15 @@ class SupTrainer:
 
     def _save_best(self, threshold, epoch):
         save_snapshot(self.state.state_dict(), self.paths.checkpoints,
-                      threshold=threshold, save_best=True, **self.hebb_meta)
+                      threshold=threshold, save_best=True,
+                      transposed=transposed_paths(self.state.model),
+                      **self.hebb_meta)
 
     def _save_last(self, threshold):
         save_snapshot(self.state.state_dict(), self.paths.checkpoints,
-                      threshold=threshold, save_best=False, **self.hebb_meta)
+                      threshold=threshold, save_best=False,
+                      transposed=transposed_paths(self.state.model),
+                      **self.hebb_meta)
 
     def train_epoch(self, epoch, collect_metrics):
         acc = make_accumulator(self.num_classes) if collect_metrics else None

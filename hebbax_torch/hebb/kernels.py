@@ -1,12 +1,16 @@
 """SWTA-delta dispatcher and the wrapper of its CUDA kernel
 (``hebbax/hebb/pallas_kernels.py`` ``swta_delta`` / ``swta_delta_pallas``).
 
-:func:`swta_delta` routes by where the tensors lie:
+:func:`swta_delta` routes by rank, as hebbax's dispatcher does (its
+fused kernel takes only a 4-D kernel), and a 2D delta by where the
+tensors lie:
 
-* CUDA tensors go to the hand-written kernel ``csrc/swta_delta.cu``
+* a 5-D weight (a 3D conv), on any device, goes to the composed rule
+  :func:`rules.swta_conv3d_delta`: no kernel of the port takes it;
+* 2D CUDA tensors go to the hand-written kernel ``csrc/swta_delta.cu``
   through :data:`SWTA_DELTA`, or raise — there is no fallback and no
   environment switch;
-* CPU tensors go to the plain version :func:`rules.swta_conv_delta`.
+* 2D CPU tensors go to the plain version :func:`rules.swta_conv_delta`.
 
 The wrapper checks device, dtype, contiguity and shape, allocates the
 output and the workspace with ``torch.empty``, launches on the current
@@ -194,8 +198,11 @@ SWTA_DELTA = SwtaDeltaKernel()
 
 
 def swta_delta(w, x, y, k, padding):
-    """SWTA delta of a stride-1 2D forward conv: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    """SWTA delta of a stride-1 forward conv: the composed rule for a 3D
+    conv; for a 2D conv the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if w.dim() == 5:
+        return rules.swta_conv3d_delta(w, x, y, k, padding)
     if x.is_cuda:
         return SWTA_DELTA(w.contiguous(), x.contiguous(), y.contiguous(),
                           k, padding)

@@ -1,6 +1,6 @@
-"""Shared model ops (``hebbax/models/common.py``) in NCHW: pooling, the
-align_corners bilinear and floor-indexed nearest resizes, flax-semantics
-batch norm, and the CCT feature perturbations.
+"""Shared model ops (``hebbax/models/common.py``), channels-first: 2D and
+3D pooling, the align_corners bilinear and floor-indexed nearest resizes,
+flax-semantics batch norm (2D and 3D), and the CCT feature perturbations.
 
 Each perturbation is split in two: ``draw_perturbation`` takes its random
 draw from an explicit ``torch.Generator``, and ``feature_noise`` /
@@ -20,12 +20,12 @@ CCT_FRAC_RANGE = (0.7, 0.9)     # attention threshold fraction ~ U(lo, hi)
 
 
 def max_pool(x):
-    """MaxPool2d(kernel_size=2) over the spatial dims."""
+    """MaxPool2d / MaxPool3d(kernel_size=2) over the 2 or 3 spatial dims."""
     if min(x.shape[2:]) < 2:
         raise ValueError(
             f"max_pool collapses a spatial dim of {tuple(x.shape)} to "
             f"zero — 4-level UNets need >= 16 px per axis")
-    return F.max_pool2d(x, 2)
+    return (F.max_pool3d if x.dim() == 5 else F.max_pool2d)(x, 2)
 
 
 def resize_linear_align_corners(x, out_spatial):
@@ -121,7 +121,9 @@ def cct_aux_outputs(clean_levels, perturb_one, decode, batched=False):
 
 
 class BatchNorm2d(nn.Module):
-    """Batch norm with flax ``nn.BatchNorm`` semantics and torch defaults.
+    """Batch norm with flax ``nn.BatchNorm`` semantics and torch defaults,
+    over the channel dim 1 of a 4-D (or, in :class:`BatchNorm3d`, 5-D)
+    input.
 
     eps 1e-5; running statistics move by 0.1 per training forward (flax
     momentum 0.9); ``running_var`` takes the BIASED batch variance, as
@@ -136,8 +138,11 @@ class BatchNorm2d(nn.Module):
 
     def __init__(self, features: int, device=None, generator=None):
         super().__init__()
-        scale = 1.0 + self.gain_init * torch.randn(features,
-                                                   generator=generator)
+        if self.gain_init is None:
+            scale = torch.ones(features)
+        else:
+            scale = 1.0 + self.gain_init * torch.randn(features,
+                                                       generator=generator)
         self.weight = nn.Parameter(scale.to(device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean",
@@ -150,11 +155,20 @@ class BatchNorm2d(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps)
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        var, mean = torch.var_mean(x, dim=(0,) + tuple(range(2, x.dim())),
+                                   unbiased=False)
         with torch.no_grad():
             self.running_mean.lerp_(mean.detach(), self.momentum)
             self.running_var.lerp_(var.detach(), self.momentum)
         inv = torch.rsqrt(var + self.eps)
-        return ((x - mean[None, :, None, None])
-                * (inv * self.weight)[None, :, None, None]
-                + self.bias[None, :, None, None])
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        return ((x - mean.view(view)) * (inv * self.weight).view(view)
+                + self.bias.view(view))
+
+
+class BatchNorm3d(BatchNorm2d):
+    """:class:`BatchNorm2d`'s semantics over a 5-D input, with the scale
+    initialised to ones: torch ``BatchNorm3d`` keeps its default, since the
+    reference's init_weights rescales only ``BatchNorm2d``."""
+
+    gain_init = None

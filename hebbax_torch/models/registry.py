@@ -1,11 +1,12 @@
-"""Network registry (``hebbax/models/registry.py``), the 2D networks
-ported so far: ``unet``, ``unet_urpc``, ``unet_cct`` and the unsupervised
-baselines ``unet_vae``, ``unet_superpix`` and ``unet_ddpm``.  The folded
+"""Network registry (``hebbax/models/registry.py``), the networks ported
+so far: in 2D ``unet``, ``unet_urpc``, ``unet_cct`` and the unsupervised
+baselines ``unet_vae``, ``unet_superpix`` and ``unet_ddpm``; in 3D
+``unet3d`` and ``unet3d_min`` (32 initial features).  The folded
 ``*_s2d`` names are registered on the same classes: their parameter trees
 are identical and the space-to-depth fold is a TPU layout, so the CLIs'
-default ``-n unet_s2d`` (``unet_urpc_s2d``, ``unet_cct_s2d``) runs the
-unfolded network here; the baselines have no folded name in hebbax
-either.  ``unet_cct_s2d_batched`` (one 4N-batched decode, other training
+default ``-n unet_s2d`` (``unet_urpc_s2d``, ``unet_cct_s2d``,
+``unet3d_s2d``) runs the unfolded network here; the baselines have no
+folded name in hebbax either.  ``unet_cct_s2d_batched`` (one 4N-batched decode, other training
 BN numerics) is not registered.
 """
 
@@ -15,6 +16,7 @@ from ..hebb.spec import HebbSpec
 from .ddpm import DDPMUNet
 from .unet2d import (UNet2D, UNetCCT2D, UNetSuperpix2D, UNetURPC2D,
                      UNetVAE2D)
+from .unet3d import UNet3D
 
 _DEEP4 = dict(nd=2, outputs="deep4")
 _CCT = dict(nd=2, outputs="deep4", rngs=("perturb",))
@@ -30,6 +32,10 @@ _REGISTRY = {
     "unet_vae": (UNetVAE2D, dict(nd=2, outputs="vae", rngs=("latent",))),
     "unet_superpix": (UNetSuperpix2D, dict(nd=2, outputs="superpix")),
     "unet_ddpm": (DDPMUNet, dict(nd=2, outputs="ddpm")),
+    "unet3d": (UNet3D, dict(nd=3, outputs="single")),
+    "unet3d_s2d": (UNet3D, dict(nd=3, outputs="single")),
+    "unet3d_min": (lambda **kw: UNet3D(init_features=32, **kw),
+                   dict(nd=3, outputs="single")),
 }
 
 

@@ -6,6 +6,9 @@
     connectivity-1 structuring element (medpy ``__surface_distances``).
   hd95  = 95th percentile of the pooled bidirectional surface distances.
   assd  = mean of (mean d(A->B), mean d(B->A)).
+
+:func:`eval_distance_offline` is the 3D tester's per-volume evaluation
+over saved predictions.
 """
 
 import numpy as np
@@ -59,3 +62,29 @@ def evaluate_distance_binary(probs_fg, masks, thresholds):
         hd_list.append(np.min(hd_))
         sd_list.append(np.min(sd_))
     return float(np.mean(hd_list)), float(np.mean(sd_list))
+
+
+def eval_distance_offline(mask_list, pred_list, num_classes=2):
+    """Offline HD95/ASSD over saved predictions: per volume, skipping a
+    volume whose prediction or mask is empty, then the mean (per class,
+    then over the classes, for a multi-class task).  NaN when every
+    volume was skipped."""
+    if num_classes == 2:
+        hd_list, sd_list = [], []
+        for m, p in zip(mask_list, pred_list):
+            if np.any(p) and np.any(m):
+                hd_list.append(hd95(p, m))
+                sd_list.append(assd(p, m))
+        return float(np.mean(hd_list)), float(np.mean(sd_list))
+    hd_out, sd_out = [], []
+    for cls in range(num_classes - 1):
+        hd_list, sd_list = [], []
+        for m, p in zip(mask_list, pred_list):
+            m_ = np.where(m == cls + 1, m, 0)
+            p_ = np.where(p == cls + 1, p, 0)
+            if np.any(p_) and np.any(m_):
+                hd_list.append(hd95(p_, m_))
+                sd_list.append(assd(p_, m_))
+        hd_out.append(np.mean(hd_list))
+        sd_out.append(np.mean(sd_list))
+    return float(np.mean(hd_out)), float(np.mean(sd_out))

@@ -1,6 +1,6 @@
 """Segmentation and consistency losses (``hebbax/ops/losses.py``),
-channels-first logits ``(N, C, H, W)`` and integer masks ``(N, H, W)``
-with ``ignore_index=-1`` marking invalid pixels.  Losses reduce in
+channels-first logits ``(N, C, *spatial)`` (2D or 3D) and integer masks
+``(N, *spatial)`` with ``ignore_index=-1`` marking invalid pixels.  Losses reduce in
 float32."""
 
 import math
@@ -38,7 +38,7 @@ def entropy_loss(probs, num_classes=2, weight=None):
 def _one_hot_valid(target, num_classes, ignore_index=-1):
     valid = (target != ignore_index).float()
     onehot = F.one_hot(target.clamp(min=0).long(), num_classes)
-    return onehot.permute(0, 3, 1, 2).float(), valid
+    return onehot.movedim(-1, 1).float(), valid
 
 
 def dice_loss(logits, target, num_classes=None, smooth=1.0, p=2,

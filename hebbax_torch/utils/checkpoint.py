@@ -9,8 +9,9 @@ are ``ExtType(1, packb((shape, dtype_name, C-order bytes)))``.
 The msgpack subset that layout needs is encoded and decoded here, so the
 port depends on no msgpack package, and a snapshot crosses between hebbax
 and the port in both directions.  The tree holds flax names and layouts
-(``params``/``batch_stats``, kernels ``(kh, kw, I, O)``);
-:mod:`hebbax_torch.bridge` maps it to and from a ``state_dict``.
+(``params``/``batch_stats``, kernels ``(*k, I, O)``);
+:mod:`hebbax_torch.bridge` maps it to and from a ``state_dict``, told
+which modules are transpose convs (``transposed``) where a kernel is 5-D.
 """
 
 import json
@@ -232,9 +233,11 @@ def _write(out, meta, variables):
 
 
 def save_snapshot(state_dict, path, threshold=None, save_best=False,
-                  hebb_params=None, layers_excluded=None, extra=None):
+                  hebb_params=None, layers_excluded=None, extra=None,
+                  transposed=None):
     """Write ``best_JI.ckpt`` (save_best) or ``last.ckpt`` into ``path``
-    from a model ``state_dict``."""
+    from a model ``state_dict``; ``transposed``: the model's transpose
+    conv paths (:func:`hebbax_torch.hebb.layers.transposed_paths`)."""
     from ..bridge import to_flax
 
     os.makedirs(path, exist_ok=True)
@@ -246,7 +249,7 @@ def save_snapshot(state_dict, path, threshold=None, save_best=False,
     }
     if extra:
         meta.update(extra)
-    params, batch_stats = to_flax(state_dict)
+    params, batch_stats = to_flax(state_dict, transposed)
     variables = {"params": params}
     if batch_stats:
         variables["batch_stats"] = batch_stats
@@ -265,11 +268,13 @@ def load_snapshot(path):
     return variables, meta
 
 
-def load_state_dict(path):
+def load_state_dict(path, transposed=None):
     """Return (state_dict, meta) from a snapshot file; the state_dict
-    holds CPU tensors under the port's parameter names."""
+    holds CPU tensors under the port's parameter names.  ``transposed``:
+    the transpose conv paths of the model it is for (needed where a
+    kernel is 5-D)."""
     from ..bridge import from_flax
 
     variables, meta = load_snapshot(path)
-    return from_flax(variables["params"],
-                     variables.get("batch_stats")), meta
+    return from_flax(variables["params"], variables.get("batch_stats"),
+                     transposed), meta

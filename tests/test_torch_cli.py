@@ -150,6 +150,12 @@ def test_port_imports_no_jax():
         "import hebbax_torch.ops.ema, hebbax_torch.config.ramps\n"
         "import hebbax_torch.cli.pretrain_unsup_2d, hebbax_torch.models.ddpm\n"
         "import hebbax_torch.ops.diffusion, hebbax_torch.ops.superpix\n"
+        "import hebbax_torch.cli.pretrain_hebbian_unsup_3d\n"
+        "import hebbax_torch.cli.train_sup_3d, hebbax_torch.cli.test_3d\n"
+        "import hebbax_torch.cli.common3d, hebbax_torch.engine.sliding\n"
+        "import hebbax_torch.data.volumes3d, hebbax_torch.data.augment3d\n"
+        "import hebbax_torch.data.nrrd_io, hebbax_torch.models.unet3d\n"
+        "import hebbax_torch.ops.morphology, hebbax_torch.ops.distance\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'hebbax'))\n"
