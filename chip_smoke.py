@@ -89,9 +89,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    HD95 and ASSD finite unless no volume had a non-empty prediction, and
    the seconds per volume of the slider and, apart, of post-processing +
    distances; one ``hebbian_3d_path`` line carries (j)–(m);
-8. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
-   urpc_pretrain, cct_pretrain and the paths of 6 and 7), the card's name
-   and power limit, and last ``{"ok": true, "device": {...}}``.
+8. the 3D semi-supervised family over phase 7's volumes (which carry
+   ``mask_sdf1`` maps from the port's ``mask_to_sdf``), with the sweep's
+   network names, none reaching K1: (n) at batch 2, 32^3, a training
+   forward of full-width ``unet3d_dtc``, ``unet3d_cct`` (the same
+   perturbation draws on both) and a Hebbian ``unet3d_urpc`` (swta_t,
+   K=50, heads excluded, channel dropout off) on the card against the
+   CPU: every output within 1e-4 of max(1, max|output|), URPC's 18 deltas
+   within 1e-3 of their site's max|delta|; (o)
+   ``pretrain_hebbian_unsup_3d -n unet3d_urpc`` with (k)'s flags and 2
+   patches per volume: ``conv1.conv1`` and ``up_concat1.conv.conv1``
+   unchanged in epoch 0 and changed in epoch 1, the four ``dsv`` heads
+   trained, ``last.ckpt``; (p) ``train_semi_3d`` at regime 50 with the
+   sweep's flags (SGD, lr 0.1, dice, unsup weight 5, validation every
+   epoch), batch 1, 96x96x80 patches, 2 patches per train and val volume,
+   2 epochs, warmup 1: em / uamt / cps on ``unet3d_s2d`` from (k)'s
+   snapshot, urpc on ``unet3d_urpc_s2d`` from (o)'s, cct on
+   ``unet3d_cct_s2d_rc`` and dtc on ``unet3d_dtc_s2d`` from kaiming;
+   gates as (e) plus the trunk equal to the Hebbian snapshot before the
+   first step; then 10 steady and 3 profiled steps each and the peak
+   ``torch.cuda.max_memory_allocated``; (q) ``test_3d --postprocessing
+   True`` on each run's best_JI.ckpt, gates as (m); one ``semi_3d_path``
+   line carries (n)–(q);
+9. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
+   urpc_pretrain, cct_pretrain and the paths of 6, 7 and 8), the card's
+   name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
 and writes only under ``build/`` beside this file.
@@ -593,6 +615,26 @@ def finite_losses(trainer):
     return losses, all(np.isfinite(v) for v in losses)
 
 
+def share_cct_draws(cpu, gpu, device, seed=9):
+    """CCT's perturbations take the same draws on both models: drawn on
+    the CPU by ``cpu``'s forward (which must run first), then copied to
+    ``device`` for ``gpu``'s."""
+    from hebbax_torch.models.common import (CCT_PERTURB_KINDS,
+                                            draw_perturbation)
+    from hebbax_torch.utils.seeding import make_generator
+
+    gen, draws = make_generator(seed), {}
+
+    def draw_on_cpu(feats):
+        for kind in CCT_PERTURB_KINDS:
+            draws[kind] = [draw_perturbation(kind, f, gen) for f in feats]
+        return draws
+
+    cpu.draw_perturbations = draw_on_cpu
+    gpu.draw_perturbations = lambda feats: {
+        k: [d.to(device) for d in v] for k, v in draws.items()}
+
+
 def phase_deep4_reference(device):
     """Training forward of unet_urpc and unet_cct at batch 2, 32x32 on the
     card (kernel) against the same weights on the CPU (plain version);
@@ -602,8 +644,6 @@ def phase_deep4_reference(device):
     from hebbax_torch.hebb.spec import HebbSpec
     from hebbax_torch.hebb.surgery import pop_deltas
     from hebbax_torch.models import get_network
-    from hebbax_torch.models.common import (CCT_PERTURB_KINDS,
-                                            draw_perturbation)
     from hebbax_torch.ops.dropout import Dropout
     from hebbax_torch.utils.seeding import make_generator
 
@@ -621,17 +661,7 @@ def phase_deep4_reference(device):
                     mod.p = 0.0         # dropout off: the streams differ
             m.train()
         if net == "unet_cct":
-            gen, draws = make_generator(9), {}
-
-            def draw_on_cpu(feats, gen=gen, draws=draws):
-                for kind in CCT_PERTURB_KINDS:
-                    draws[kind] = [draw_perturbation(kind, f, gen)
-                                   for f in feats]
-                return draws
-
-            cpu.draw_perturbations = draw_on_cpu
-            gpu.draw_perturbations = lambda feats, draws=draws: {
-                k: [d.to(device) for d in v] for k, v in draws.items()}
+            share_cct_draws(cpu, gpu, device)
         with torch.no_grad():
             out_c = cpu(x)
             before = kernels.SWTA_DELTA.launches
@@ -1017,13 +1047,15 @@ EXCLUDE_3D = ("conv", "dsv1", "dsv2", "dsv3", "dsv4", "out_conv",
 
 
 def synth_volumes(root, n_train, n_val, shape, seed=0):
-    """``scripts/make_synth_data.py::make_3d``'s generator (image and mask,
-    no SDF maps), written by the port's NRRD writer."""
+    """``scripts/make_synth_data.py::make_3d``'s generator (image, mask and
+    the ``mask_sdf1`` map DTC trains against, from the port's
+    ``mask_to_sdf``), written by the port's NRRD writer."""
     from hebbax_torch.data.nrrd_io import write_nrrd
+    from hebbax_torch.ops.distance import mask_to_sdf
 
     rng = np.random.default_rng(seed)
     for split, n in (("train", n_train), ("val", n_val)):
-        for sub in ("image", "mask"):
+        for sub in ("image", "mask", "mask_sdf1"):
             os.makedirs(os.path.join(root, split, sub), exist_ok=True)
         for i in range(n):
             vol = rng.normal(100, 20, shape).astype(np.float32)
@@ -1036,6 +1068,8 @@ def synth_volumes(root, n_train, n_val, shape, seed=0):
             name = f"v{i}.nrrd"
             write_nrrd(os.path.join(root, split, "image", name), vol)
             write_nrrd(os.path.join(root, split, "mask", name), mask)
+            write_nrrd(os.path.join(root, split, "mask_sdf1", name),
+                       mask_to_sdf(mask > 0).astype(np.float32))
     return root
 
 
@@ -1140,19 +1174,19 @@ def phase_3d_reference(device):
             "sites": rows}
 
 
-def cli_base_3d(device, data_root):
+def cli_base_3d(device, data_root, net=None):
     return ["--device", device, "--path_dataset", data_root,
             "--dataset_name", "Atrial", "--path_root_exp", RUN_DIR,
-            "-n", NET_3D, "-b", "1", "-e", "2", "-w", "1",
+            "-n", net or NET_3D, "-b", "1", "-e", "2", "-w", "1",
             "--patch_size", ",".join(str(p) for p in PATCH),
             "--num_workers", "4"]
 
 
-def phase_3d_pretrain(data_root, device="0"):
-    """(k) pretrain_hebbian_unsup_3d on unet3d with the sweep's flags:
-    no K1 launch, finite losses, the Hebbian kernels unchanged in epoch 0
-    (lr 0) and changed in epoch 1, the head trained, last.ckpt; then
-    steady and profiled steps."""
+def pretrain_3d(data_root, device, net, watch, heads, tag, extra=()):
+    """pretrain_hebbian_unsup_3d of ``net`` with the sweep's flags: no K1
+    launch, finite losses, the ``watch`` Hebbian kernels unchanged in
+    epoch 0 (lr 0) and changed in epoch 1, every ``heads`` weight trained,
+    last.ckpt; then steady and profiled steps."""
     import torch
     from hebbax_torch.cli import common3d
     from hebbax_torch.cli import pretrain_hebbian_unsup_3d as pretrain
@@ -1160,14 +1194,14 @@ def phase_3d_pretrain(data_root, device="0"):
 
     on = "cpu" if device == "cpu" else "cuda"
     args = pretrain.add_args(common3d.base_parser_3d()).parse_args(
-        cli_base_3d(device, data_root) + [
+        cli_base_3d(device, data_root, net) + list(extra) + [
             "--hebb_mode", "swta_t", "--hebb_inv_temp", str(int(K_TEMP)),
             "--exclude", *EXCLUDE_3D, "--optimizer", "adam", "-l", "1e-6"])
     trainer = pretrain.build(args)
     model = trainer.state.model
-    watch = ("encoder.encoder1.conv1.weight", "decoder.upconv1.weight")
-    w0 = {n: model.state_dict()[n].detach().clone() for n in watch}
-    head0 = model.conv.weight.detach().clone()
+    sd0 = model.state_dict()
+    w0 = {n: sd0[n].detach().clone() for n in watch}
+    heads0 = {n: sd0[n].detach().clone() for n in heads}
     times, snaps = [], []
     raw_step = trainer.train_step
 
@@ -1186,26 +1220,37 @@ def phase_3d_pretrain(data_root, device="0"):
     trainer.run()
     launches = kernels.SWTA_DELTA.launches
     per_epoch = len(trainer.loaders["train"])
-    check(len(times) == 2 * per_epoch, f"(k) ran {len(times)} steps")
-    check(launches == 0, f"(k) launched K1 {launches} times")
+    check(len(times) == 2 * per_epoch, f"{tag} ran {len(times)} steps")
+    check(launches == 0, f"{tag} launched K1 {launches} times")
     for n in watch:
         check(all(torch.equal(s[n], w0[n]) for s in snaps[:per_epoch]),
-              f"(k) {n} changed in epoch 0 (lr 0)")
+              f"{tag} {n} changed in epoch 0 (lr 0)")
         check(not torch.equal(snaps[-1][n], w0[n]),
-              f"(k) {n} did not change in epoch 1")
-    check(not torch.equal(model.conv.weight, head0),
-          "(k) the head did not train")
-    check(all_on(model, on), f"(k) a model tensor is off {on}")
+              f"{tag} {n} did not change in epoch 1")
+    sd = model.state_dict()
+    for n in heads:
+        check(not torch.equal(sd[n], heads0[n]),
+              f"{tag} the head {n} did not train")
+    check(all_on(model, on), f"{tag} a model tensor is off {on}")
     losses, ok = finite_losses(trainer)
-    check(ok, f"(k) losses {losses}")
+    check(ok, f"{tag} losses {losses}")
     snap = os.path.join(trainer.paths.checkpoints, "last.ckpt")
-    check(os.path.exists(snap), "(k) wrote no last.ckpt")
-    log(f"(k) pretrain_3d: {len(times)} steps, K1 launches {launches}, "
-        f"step ms {[round(t, 3) for t in times]}, losses {losses}")
+    check(os.path.exists(snap), f"{tag} wrote no last.ckpt")
+    log(f"{tag} pretrain {args.network}: {len(times)} steps, K1 launches "
+        f"{launches}, step ms {[round(t, 3) for t in times]}, losses "
+        f"{losses}")
     steady = steady_step_ms(trainer, raw_step)
     profiled = profile_steps(trainer, raw_step, float(np.median(steady)))
-    log("(k) profile " + json.dumps(profiled))
+    log(f"{tag} profile " + json.dumps(profiled))
     return launches, snap, len(times), times, steady, profiled
+
+
+def phase_3d_pretrain(data_root, device="0"):
+    """(k) pretrain_hebbian_unsup_3d on unet3d (:func:`pretrain_3d`),
+    watching ``encoder.encoder1.conv1`` and ``decoder.upconv1``."""
+    return pretrain_3d(data_root, device, NET_3D,
+                       ("encoder.encoder1.conv1.weight",
+                        "decoder.upconv1.weight"), ("conv.weight",), "(k)")
 
 
 def phase_3d_finetune(data_root, snap, device="0"):
@@ -1256,36 +1301,40 @@ def phase_3d_finetune(data_root, snap, device="0"):
     return launches, trainer.paths.run, len(times), times, steady, profiled
 
 
-def phase_3d_test(data_root, run, device="0"):
-    """(m) test_3d on (l)'s best snapshot, post-processed: no K1 launch,
-    Dice / Jaccard in [0, 1], HD95 / ASSD finite unless no volume had a
-    non-empty prediction (then NaN, and said so)."""
+def phase_3d_test(data_root, run, device="0", net=None, hebbian=True,
+                  tag="(m)"):
+    """(m) test_3d on (l)'s best snapshot (or another run's, of ``net``),
+    post-processed: no K1 launch, Dice / Jaccard in [0, 1], HD95 / ASSD
+    finite unless no volume had a non-empty prediction (then NaN, and said
+    so)."""
     from hebbax_torch.cli import test_3d
     from hebbax_torch.data.nrrd_io import read_nrrd
     from hebbax_torch.hebb import kernels
 
     args = test_3d.build_parser().parse_args(
         ["--device", device, "--path_exp", run, "--path_dataset", data_root,
-         "-n", NET_3D, "--hebbian_pretrain", "1", "--postprocessing",
-         "True", "--patch_size", ",".join(str(p) for p in PATCH),
-         "--patch_overlap", ",".join(str(p) for p in OVERLAP)])
+         "-n", net or NET_3D, "--postprocessing", "True",
+         "--patch_size", ",".join(str(p) for p in PATCH),
+         "--patch_overlap", ",".join(str(p) for p in OVERLAP)]
+        + (["--hebbian_pretrain", "1"] if hebbian else []))
     kernels.SWTA_DELTA.launches = 0
     res = test_3d.run_test(args)
     launches = kernels.SWTA_DELTA.launches
-    check(launches == 0, f"(m) launched K1 {launches} times")
+    check(launches == 0, f"{tag} launched K1 {launches} times")
     check(0.0 <= res["dice"] <= 1.0 and 0.0 <= res["jaccard"] <= 1.0,
-          f"(m) metrics out of range: {res}")
+          f"{tag} metrics out of range: {res}")
     pp = os.path.join(run, "test_seg_preds_postprocessed")
     nonempty = [n for n in sorted(os.listdir(pp))
                 if read_nrrd(os.path.join(pp, n))[0].any()]
     if nonempty:
         check(np.isfinite(res["hd"]) and np.isfinite(res["sd"]),
-              f"(m) HD95/ASSD not finite with non-empty predictions "
+              f"{tag} HD95/ASSD not finite with non-empty predictions "
               f"{nonempty}: {res}")
     else:
         check(np.isnan(res["hd"]) and np.isnan(res["sd"]),
-              f"(m) distances of empty predictions: {res}")
-    log(f"(m) test_3d: Dice {res['dice']:.4f} Jaccard {res['jaccard']:.4f} "
+              f"{tag} distances of empty predictions: {res}")
+    log(f"{tag} test_3d {args.network}: Dice {res['dice']:.4f} Jaccard "
+        f"{res['jaccard']:.4f} "
         f"HD95 {res['hd']:.3f} ASSD {res['sd']:.3f} (non-empty predictions "
         f"{nonempty}; NaN distances mean none); seconds per volume: slider "
         f"{res['seconds']['slider']:.3f}, post-processing + distances "
@@ -1317,6 +1366,206 @@ def phase_3d(card, device="0"):
         "delta_sites_ms": sum(r["ms"] for r in ref["sites"]),
         "delta_sites_bound_ms": sum(r["bound_ms"] for r in ref["sites"]),
         "test": test, "patch": list(PATCH), "volume": list(VOLUME)}
+    return launches, record, data_root, snap
+
+
+URPC_3D = "unet3d_urpc"
+# (algo, network, the Hebbian snapshot it starts from: phase 7's (k), (o)
+# or none) as reproduce_{hebbian_,}semi_supervised_3d.sh run them
+SEMI_3D = (("em", "unet3d_s2d", "k"), ("uamt", "unet3d_s2d", "k"),
+           ("cps", "unet3d_s2d", "k"), ("urpc", "unet3d_urpc_s2d", "o"),
+           ("cct", "unet3d_cct_s2d_rc", None),
+           ("dtc", "unet3d_dtc_s2d", None))
+# phase 8 cuts steps, not width: 2 patches per train volume, 2 per val
+SPV_3D_SEMI = ["--samples_per_volume_train", "2",
+               "--samples_per_volume_val", "2"]
+
+
+def phase_semi_3d_reference(device):
+    """(n) Training forwards at batch 2, 32^3 on the card against the same
+    weights on the CPU: full-width unet3d_dtc, unet3d_cct (the same
+    perturbation draws on both) and a Hebbian unet3d_urpc (swta_t, K=50,
+    its heads excluded; channel dropout off on both): every output within
+    1e-4 of max(1, max|output|), URPC's 18 deltas within 1e-3 of each
+    site's max|delta|, no K1 launch."""
+    import torch
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.hebb.spec import HebbSpec
+    from hebbax_torch.hebb.surgery import pop_deltas
+    from hebbax_torch.models import get_network
+    from hebbax_torch.ops.dropout import Dropout
+    from hebbax_torch.utils.seeding import make_generator
+
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (2, 1, 32, 32, 32)).astype(np.float32))
+    out = {}
+    for net in ("unet3d_dtc", "unet3d_cct", URPC_3D):
+        spec = (HebbSpec(mode="swta_t", k=K_TEMP, exclude=EXCLUDE_3D)
+                if net == URPC_3D else None)
+        gpu, cpu = [get_network(net, 1, 2, hebb=spec, device=dev,
+                                generator=make_generator(3))
+                    for dev in (device, "cpu")]
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        for m in (gpu, cpu):
+            for mod in m.modules():
+                if isinstance(mod, Dropout):
+                    mod.p = 0.0         # dropout off: the streams differ
+            m.train()
+        if net == "unet3d_cct":
+            share_cct_draws(cpu, gpu, device)
+        with torch.no_grad():
+            out_c = cpu(x)
+            before = kernels.SWTA_DELTA.launches
+            out_g = [o.cpu() for o in gpu(x.to(device))]
+        check(kernels.SWTA_DELTA.launches == before,
+              f"(n) {net}: the card's forward launched K1")
+        rel = max(float((g - c).abs().max()) / max(1.0, float(c.abs().max()))
+                  for g, c in zip(out_g, out_c))
+        check(rel <= 1e-4, f"(n) {net}: outputs card vs CPU differ by {rel} "
+                           f"of max(1, max|output|)")
+        rec = {"outputs_max_rel": rel}
+        if spec is not None:
+            dg, dc = pop_deltas(gpu), pop_deltas(cpu)
+            check(set(dg) == set(dc) and len(dg) == 18,
+                  f"(n) {net}: delta sites differ: {len(dg)} vs {len(dc)}")
+            rec["delta_max_rel"] = max(
+                float((dg[n].cpu() - dc[n]).abs().max())
+                / float(dc[n].abs().max()) for n in dc)
+            check(rec["delta_max_rel"] <= 1e-3,
+                  f"(n) {net}: deltas card vs CPU differ by "
+                  f"{rec['delta_max_rel']} of scale")
+        out[net] = rec
+        log(f"(n) small-input reference {net}: " + json.dumps(rec)
+            + ", 0 launches")
+        del gpu, cpu, out_c, out_g
+    torch.cuda.empty_cache()
+    return out
+
+
+def trunk_equal_to_snapshot(model, snap, exclude):
+    """The entries of ``model`` outside ``exclude`` that differ from the
+    snapshot ``snap``."""
+    import torch
+    from hebbax_torch.hebb.layers import transposed_paths
+    from hebbax_torch.hebb.spec import is_excluded
+    from hebbax_torch.utils.checkpoint import load_state_dict
+
+    loaded, _ = load_state_dict(snap, transposed_paths(model))
+    return [n for n, t in model.state_dict().items()
+            if not is_excluded(tuple(n.split(".")[:-1]), tuple(exclude))
+            and not torch.equal(t.cpu(), loaded[n])]
+
+
+def phase_semi_3d_train(data_root, snaps, device="0"):
+    """(p) train_semi_3d at regime 50 with the sweep's flags (SGD, lr 0.1,
+    dice, unsup weight 5, validation every epoch), batch 1, 96x96x80
+    patches, 2 epochs, warmup 1, each algorithm from its snapshot or from
+    kaiming: no K1 launch, finite losses, best_JI.ckpt, the trunk equal
+    to the Hebbian snapshot before the first step, for uamt / cps
+    checkpoints2/last.ckpt, both models moved and model 2 unlike model 1;
+    then steady and profiled steps and the peak memory; (q) test_3d on
+    each run's best_JI.ckpt, as (m)."""
+    import gc
+
+    import torch
+    from hebbax_torch.cli import common3d, train_semi_3d
+    from hebbax_torch.hebb import kernels
+
+    on = "cpu" if device == "cpu" else "cuda"
+    out = {k: {} for k in ("launches", "steps", "step_ms", "steady",
+                           "profile", "peak_gib", "test")}
+    for algo, net, src in SEMI_3D:
+        argv = cli_base_3d(device, data_root, net) + SPV_3D_SEMI + [
+            "--regime", "50", "--optimizer", "sgd", "-l", "0.1", "--loss",
+            "dice", "--unsup_weight", "5", "--validate_iter", "1"]
+        if src:
+            argv += ["--load_hebbian_weights", snaps[src],
+                     "--hebb_inv_temp", str(int(K_TEMP))]
+        args = train_semi_3d.add_args(common3d.base_parser_3d(), algo)\
+            .parse_args(argv)
+        if on == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        trainer = train_semi_3d.build(args, algo)
+        dual = algo in ("uamt", "cps")
+        models = ([trainer.state.model1, trainer.state.model2] if dual
+                  else [trainer.state.model])
+        if src:
+            differ = trunk_equal_to_snapshot(models[0], snaps[src],
+                                             EXCLUDE_3D)
+            check(not differ, f"(p) {algo}: the trunk differs from the "
+                              f"snapshot: {differ[:5]}")
+        watch = next(n for n, _ in models[0].named_parameters()
+                     if n.endswith("conv1.weight"))
+        w0 = [m.state_dict()[watch].detach().clone() for m in models]
+        times = []
+        raw_step = trainer.train_step
+        trainer.train_step = timed_step(raw_step, times)
+        kernels.SWTA_DELTA.launches = 0
+        trainer.run()
+        launches = out["launches"][f"{algo}_3d"] = kernels.SWTA_DELTA.launches
+        check(launches == 0, f"(p) {algo} launched K1 {launches} times")
+        check(all(all_on(m, on) for m in models),
+              f"(p) {algo}: a model tensor is off {on}")
+        losses, ok = finite_losses(trainer)
+        check(ok, f"(p) {algo} losses {losses}")
+        ckpts = trainer.paths.checkpoints
+        check(os.path.exists(os.path.join(ckpts, "best_JI.ckpt")),
+              f"(p) {algo} wrote no best_JI.ckpt")
+        w1 = [m.state_dict()[watch] for m in models]
+        check(not torch.equal(w1[0], w0[0]), f"(p) {algo}: model 1 "
+                                             f"unchanged")
+        if dual:
+            check(os.path.exists(os.path.join(ckpts + "2", "last.ckpt")),
+                  f"(p) {algo} wrote no checkpoints2/last.ckpt")
+            check(not torch.equal(w1[1], w0[1]),
+                  f"(p) {algo}: model 2 unchanged")
+            check(not torch.equal(w1[1], w1[0]),
+                  f"(p) {algo}: model 2 equals model 1")
+        out["steps"][algo], out["step_ms"][algo] = len(times), times
+        log(f"(p) {algo} on {net}: {len(times)} steps, K1 launches "
+            f"{launches}, step ms {[round(t, 3) for t in times]}, losses "
+            f"{losses}")
+        out["steady"][algo] = steady_step_ms(trainer, raw_step)
+        out["profile"][algo] = profile_steps(
+            trainer, raw_step, float(np.median(out["steady"][algo])))
+        log(f"(p) {algo} profile " + json.dumps(out["profile"][algo]))
+        if on == "cuda":
+            out["peak_gib"][algo] = torch.cuda.max_memory_allocated() / 2**30
+            log(f"(p) {algo} peak memory {out['peak_gib'][algo]:.3f} GiB "
+                f"(torch.cuda.max_memory_allocated, the run and its timed "
+                f"steps)")
+        run = trainer.paths.run
+        del trainer, models, raw_step
+        gc.collect()
+        if on == "cuda":
+            torch.cuda.empty_cache()
+        l_q, out["test"][algo] = phase_3d_test(
+            data_root, run, device, net=net, hebbian=bool(src),
+            tag=f"(q) {algo}")
+        out["launches"][f"test_{algo}_3d"] = l_q
+    return out
+
+
+def phase_semi_3d(card, data_root, snap_k, device="0"):
+    """Phase 8: (n)-(q) over phase 7's volumes and (k)'s snapshot;
+    returns the launches by path and the ``semi_3d_path`` record."""
+    ref = phase_semi_3d_reference(card)
+    l_o, snap_o, steps_o, times_o, steady_o, prof_o = pretrain_3d(
+        data_root, device, URPC_3D,
+        ("conv1.conv1.weight", "up_concat1.conv.conv1.weight"),
+        tuple(f"dsv{i}.weight" for i in range(1, 5)), "(o)", SPV_3D_SEMI)
+    semi = phase_semi_3d_train(data_root, {"k": snap_k, "o": snap_o},
+                               device)
+    launches = {"pretrain_3d_urpc": l_o, **semi["launches"]}
+    record = {
+        "launches": launches,
+        "steps": {"o": steps_o, **semi["steps"]},
+        "step_ms": {"o": times_o, **semi["step_ms"]},
+        "steady_step_ms": summary({"o": steady_o, **semi["steady"]}),
+        "profile": profile_summary({"o": prof_o, **semi["profile"]}),
+        "peak_gib": semi["peak_gib"], "card_vs_cpu": ref,
+        "test": semi["test"], "networks": {a: n for a, n, _ in SEMI_3D},
+        "patch": list(PATCH), "spv": SPV_3D_SEMI}
     return launches, record
 
 
@@ -1359,10 +1608,15 @@ def main():
          items["train"][:BATCH]])).permute(0, 3, 1, 2).contiguous().to(
         device)
 
+    def lap(phase):
+        log(f"phase {phase} done at {time.perf_counter() - t0:.1f} s")
+
     rows = phase_sites(device, images)
+    lap(2)
     phase_small_reference(device)
     phase_deep4_reference(device)
     launches, run_a = phase_main_path(items)
+    lap("3-4")
     l_d, snaps, steady_d, steps_d = phase_deep4_pretrain(items)
     launches.update(l_d)
     snaps["unet"] = os.path.join(run_a, "checkpoints", "last.ckpt")
@@ -1371,6 +1625,7 @@ def main():
         "launches": {**l_d, **l_e}, "steps": {**steps_d, **steps_e},
         "steady_step_ms": summary({**steady_d, **steady_e}),
         "test": tests}))
+    lap(5)
 
     errs_g = phase_unsup_reference(device)
     l_h, unsup_snaps, steady_h, prof_h, steps_h, prep = \
@@ -1387,10 +1642,17 @@ def main():
                              "min": min(prep), "max": max(prep),
                              "batch": BATCH},
         "card_vs_cpu_max_abs": errs_g, "test": tests_i}))
+    lap(6)
 
-    l_3d, record_3d = phase_3d(device)
+    l_3d, record_3d, data_root, snap_k = phase_3d(device)
     launches.update(l_3d)
     log("hebbian_3d_path " + json.dumps(record_3d))
+    lap(7)
+
+    l_8, record_8 = phase_semi_3d(device, data_root, snap_k)
+    launches.update(l_8)
+    log("semi_3d_path " + json.dumps(record_8))
+    lap(8)
 
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
@@ -1407,7 +1669,7 @@ def main():
             "a", "urpc_pretrain", "cct_pretrain", "vae_pretrain",
             "superpix_pretrain", "superdiff_pretrain", "em_vae",
             "em_superpix", "test_em_vae", "test_em_superpix",
-            "pretrain_3d", "sup_3d", "test_3d")},
+            "pretrain_3d", "sup_3d", "test_3d", *l_8)},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],

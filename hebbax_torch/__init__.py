@@ -9,14 +9,15 @@ Same layout as ``hebbax`` so each module's counterpart is easy to find:
             dispatcher, HConv / HConvTranspose, gradient merging
   csrc/     hand-written CUDA kernels (built with nvcc at first use)
   models/   UNet2D, UNetURPC2D, UNetCCT2D, the unsupervised baselines
-            (UNetVAE2D, UNetSuperpix2D, DDPMUNet), UNet3D, their blocks,
-            CCT perturbations, the network registry
-  ops/      losses, threshold-sweep metrics, HD95/ASSD, dropout, EMA,
-            diffusion schedules and losses, superpixel pseudo-masks, 3D
-            post-processing
+            (UNetVAE2D, UNetSuperpix2D, DDPMUNet), UNet3D, UNet3DDTC,
+            UNet3DCCT, UNet3DURPC, their blocks, CCT perturbations, the
+            network registry
+  ops/      losses, threshold-sweep metrics, HD95/ASSD, signed distance
+            maps, dropout, EMA, diffusion schedules and losses, superpixel
+            pseudo-masks, 3D post-processing
   engine/   train state, train/eval/probe-pretraining steps, the epoch
             harness, the semi-supervised steps and trainers (EM, UAMT,
-            CPS, URPC, CCT), the 3D sliding-window slider
+            CPS, URPC, CCT, DTC), the 3D sliding-window slider
   utils/    seeding, run dirs, logging sinks, PNG writer, HBAXCKP1 snapshots
   cli/      ``python -m hebbax_torch.cli.<name>`` entry points
   bridge.py parameter map between a flax variable tree and a state_dict

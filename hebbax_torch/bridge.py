@@ -12,9 +12,12 @@ Module names are the same in both packages, so the map is mechanical:
   batch_stats/<path>/mean              <->  <path>.running_mean
   batch_stats/<path>/var               <->  <path>.running_var
 
-e.g. ``encoder/in_conv/conv1/kernel`` is ``encoder.in_conv.conv1.weight``.
-Both directions work on numpy trees (the flax side) and CPU tensors (the
-torch side).
+e.g. ``encoder/in_conv/conv1/kernel`` is ``encoder.in_conv.conv1.weight``
+and ``main_decoder/upconv4/kernel`` (UNet3DCCT) is
+``main_decoder.upconv4.weight``.  A network without batch statistics
+(UNet3DURPC's instance norm keeps none) maps to and from a tree without
+``batch_stats``.  Both directions work on numpy trees (the flax side) and
+CPU tensors (the torch side).
 
 A 5-D kernel's layout cannot come from its shape: a conv's ``(O, I, *k)``
 and a transpose conv's ``(I, O, *k)`` look alike, and at I == O a wrong

@@ -75,10 +75,11 @@ def parse_patch_size(args):
     return args.patch_size
 
 
-def make_queues_3d(args, cfg, sup=True, splits=("train", "val")):
+def make_queues_3d(args, cfg, sup=True, sdf=False, splits=("train", "val")):
     """tio Queue-equivalent patch loaders over
     ``<path_dataset>/{train,val}``: the train split keeps the labelled
-    volumes of the regime (``sup``) or their complement."""
+    volumes of the regime (``sup``) or their complement, and with ``sdf``
+    carries their ``mask_sdf1`` maps (DTC)."""
     normalize = cfg.get("NORMALIZE", "mean")
     queues = {}
     for split in splits:
@@ -88,7 +89,8 @@ def make_queues_3d(args, cfg, sup=True, splits=("train", "val")):
             split=split, sup=True if split == "val" else sup,
             regime=args.regime if split == "train" else 100,
             seed=args.seed, normalize=normalize,
-            num_classes=cfg["NUM_CLASSES"], fmt=cfg.get("FORMAT", ".nrrd"))
+            num_classes=cfg["NUM_CLASSES"], sdf=sdf and split == "train",
+            fmt=cfg.get("FORMAT", ".nrrd"))
         spv = (args.samples_per_volume_train if split == "train"
                else args.samples_per_volume_val)
         queues[split] = PatchQueue(

@@ -1,6 +1,7 @@
 """Semi-supervised 2D trainers: EM, UAMT, CPS, URPC, CCT
 (``hebbax/cli/train_semi_2d.py``), one build function parameterized by the
-algorithm.
+algorithm; :func:`make_trainer`, the part after the data and the model,
+also serves the 3D CLI (``train_semi_3d``, which adds DTC).
 
     python -m hebbax_torch.cli.train_semi_2d <em|uamt|cps|urpc|cct> \\
         --load_hebbian_weights <run>/checkpoints/last.ckpt --regime 10 ...
@@ -25,9 +26,9 @@ import torch
 
 from ..config.datasets import dataset_cfg
 from ..engine.semi import (CPSTrainer, DualState, SemiTrainer,
-                           UAMTDualTrainer, cct_unsup, deep4_sup, em_unsup,
-                           make_cps_step, make_semi_step, make_uamt_step,
-                           urpc_unsup)
+                           UAMTDualTrainer, cct_unsup, deep4_sup, dtc_sup,
+                           dtc_unsup, em_unsup, make_cps_step,
+                           make_semi_step, make_uamt_step, urpc_unsup)
 from ..engine.state import TrainState
 from ..engine.steps import make_eval_step
 from ..ops.losses import segmentation_loss
@@ -80,29 +81,24 @@ def _model2(args, cfg, device, hebb, model1, add_loaded):
     return model2
 
 
-def build(args, algo, loaders=None):
-    """The trainer of ``algo`` for ``args``; ``loaders`` ({'train_sup',
-    'train_unsup', 'val'}) replaces the folder datasets when given."""
-    if algo not in ALGOS:
-        raise ValueError(f"unknown algorithm {algo!r}; one of {ALGOS}")
-    common.check_ported(args)
-    device = common.resolve_device(args.device)
-    cfg = dataset_cfg(args.dataset_name)
-    n_cls = cfg["NUM_CLASSES"]
-    phase, tag, inv_temp = semi_run_tag(args, algo)
-    paths = make_run_dir(args.path_root_exp, args.path_dataset, phase, tag,
-                         inv_temp, args.regime, args.seed,
-                         debug=bool(args.debug))
-    dump_config(paths, args)
+def single_model_losses(algo, criterion, num_classes, args):
+    """(unsup_fn, sup_fn) of a single-model algorithm; sup_fn None means
+    the criterion on the primary output."""
+    if algo == "em":
+        return em_unsup(num_classes), None
+    if algo in ("urpc", "cct"):
+        return (urpc_unsup if algo == "urpc" else cct_unsup,
+                deep4_sup(criterion))
+    return dtc_unsup, dtc_sup(criterion, beta=args.beta,
+                              num_classes=num_classes)
 
-    if loaders is None:
-        sup = common.make_loaders_2d(args, cfg, sup=True)
-        loaders = {"train_sup": sup["train"], "val": sup["val"],
-                   "train_unsup": common.make_loaders_2d(
-                       args, cfg, sup=False, splits=("train",))["train"]}
-    model, hebb = common.build_model_2d(
-        args, cfg, device, load_hebbian=args.load_hebbian_weights,
-        load_weights=args.load_weights)
+
+def make_trainer(args, algo, cfg, device, model, hebb, loaders, paths):
+    """The trainer of ``algo`` around ``model`` (with ``hebb``, the
+    fine-tune spec of a Hebbian snapshot, or None) over ``loaders``
+    ({'train_sup', 'train_unsup', 'val'}); shared by the 2D and 3D
+    CLIs."""
+    n_cls = cfg["NUM_CLASSES"]
     steps_per_epoch = len(loaders["train_sup"])
     optimizer, schedule = common.build_optimizer(
         args, model.parameters(), steps_per_epoch)
@@ -116,14 +112,12 @@ def build(args, algo, loaders=None):
               paths=paths, args=args, device=device, hebb_meta=hebb_meta,
               palette=cfg["PALETTE"], unsup_weight=args.unsup_weight)
 
-    if algo in ("em", "urpc", "cct"):
-        unsup_fn, sup_fn = {"em": (em_unsup(n_cls), None),
-                            "urpc": (urpc_unsup, deep4_sup(criterion)),
-                            "cct": (cct_unsup, deep4_sup(criterion))}[algo]
+    if algo not in ("uamt", "cps"):
         state = TrainState(model=model, optimizer=optimizer,
                            schedule=schedule)
-        step = make_semi_step(model, args.network, criterion, unsup_fn,
-                              sup_fn)
+        step = make_semi_step(model, args.network, criterion,
+                              *single_model_losses(algo, criterion, n_cls,
+                                                   args))
         return SemiTrainer(state=state, train_step=step, **kw)
 
     add_loaded = bool(args.load_hebbian_weights)
@@ -150,6 +144,31 @@ def build(args, algo, loaders=None):
     return CPSTrainer(state=state, train_step=step, eval_model2=twin,
                       eval_step2=make_eval_step(twin, args.network,
                                                 criterion), **kw)
+
+
+def build(args, algo, loaders=None):
+    """The trainer of ``algo`` for ``args``; ``loaders`` ({'train_sup',
+    'train_unsup', 'val'}) replaces the folder datasets when given."""
+    if algo not in ALGOS:
+        raise ValueError(f"unknown algorithm {algo!r}; one of {ALGOS}")
+    common.check_ported(args)
+    device = common.resolve_device(args.device)
+    cfg = dataset_cfg(args.dataset_name)
+    phase, tag, inv_temp = semi_run_tag(args, algo)
+    paths = make_run_dir(args.path_root_exp, args.path_dataset, phase, tag,
+                         inv_temp, args.regime, args.seed,
+                         debug=bool(args.debug))
+    dump_config(paths, args)
+
+    if loaders is None:
+        sup = common.make_loaders_2d(args, cfg, sup=True)
+        loaders = {"train_sup": sup["train"], "val": sup["val"],
+                   "train_unsup": common.make_loaders_2d(
+                       args, cfg, sup=False, splits=("train",))["train"]}
+    model, hebb = common.build_model_2d(
+        args, cfg, device, load_hebbian=args.load_hebbian_weights,
+        load_weights=args.load_weights)
+    return make_trainer(args, algo, cfg, device, model, hebb, loaders, paths)
 
 
 def main(algo, argv=None, loaders=None):

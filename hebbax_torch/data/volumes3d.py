@@ -1,6 +1,9 @@
 """3D volume dataset and patch queue (``hebbax/data/volumes3d.py``).
 
-* Volumes are NRRD files under <root>/{train,val}/{<input1>,mask}.
+* Volumes are NRRD files under <root>/{train,val}/{<input1>,mask}; with
+  ``sdf=True`` also the signed distance maps ``mask_sdf1`` (and
+  ``mask_sdf2`` for 3 classes) that DTC trains against, flipped and
+  cropped with the image.
 * 255 -> 1 mask relabel for binary tasks.
 * Regime split: ``random.Random(seed).shuffle`` of the listdir order, the
   first ceil(N*regime/100) labelled — 3D keeps the shuffled order (unlike
@@ -11,8 +14,6 @@
   each, buffered to max_length and shuffled before batching.  Every draw
   comes from one ``SeedSequence([seed, epoch])`` generator, in hebbax's
   order, so both packages give the same batches for a seed.
-
-The DTC signed-distance maps (``mask_sdf1``) wait for the 3D semi slice.
 """
 
 import math
@@ -32,7 +33,7 @@ class VolumeDataset3D:
                  split: str = "train", sup: bool = True,
                  regime: float = 100, seed: int = 0,
                  normalize: str = "mean", num_classes: int = 2,
-                 fmt: str = ".nrrd"):
+                 sdf: bool = False, fmt: str = ".nrrd"):
         image_dir = os.path.join(data_dir, input1)
         names = [n for n in os.listdir(image_dir) if n.endswith(fmt)]
         if regime < 100:
@@ -43,6 +44,7 @@ class VolumeDataset3D:
         self.data_dir = data_dir
         self.input1 = input1
         self.sup = sup
+        self.sdf = sdf
         self.num_classes = num_classes
         self.normalize = normalize
         self.train = split == "train"
@@ -51,8 +53,8 @@ class VolumeDataset3D:
         return len(self.names)
 
     def load_raw(self, index: int):
-        """Unnormalized volume, mask and affine (for sliding-window eval
-        and offline tools)."""
+        """Unnormalized volume, mask (and SDF maps) and affine (for
+        sliding-window eval and offline tools)."""
         name = self.names[index]
         img, header = read_nrrd(
             os.path.join(self.data_dir, self.input1, name))
@@ -64,6 +66,13 @@ class VolumeDataset3D:
             if self.num_classes == 2:
                 mask[mask == 255] = 1
             item["mask"] = mask
+            if self.sdf:
+                names = ["mask_sdf1"] + (["mask_sdf2"]
+                                         if self.num_classes == 3 else [])
+                for sub, key in zip(names, ("mask_sdf", "mask_sdf2")):
+                    sdf, _ = read_nrrd(os.path.join(self.data_dir, sub,
+                                                    name))
+                    item[key] = sdf.astype(np.float32)
         return item
 
     def get_volume(self, index: int,
@@ -72,7 +81,7 @@ class VolumeDataset3D:
         item = self.load_raw(index)
         if self.train:
             rng = rng or np.random.default_rng()
-            # joint flip of every spatial array (image and mask)
+            # joint flip of every spatial array (image, mask, SDF maps)
             shape = item["image"].shape
             if rng.random() < 0.5:
                 for k, v in item.items():

@@ -34,14 +34,19 @@ def to_device_batch(batch, device):
 
 
 def to_device_batch_3d(batch, device):
-    """Host patch batch ((B, X, Y, Z) images, int masks) -> device tensors
-    ((B, 1, X, Y, Z) float32 images, int64 masks); the patch ids and
-    locations stay on the host."""
+    """Host patch batch ((B, X, Y, Z) images, int masks, float SDF maps) ->
+    device tensors ((B, 1, X, Y, Z) float32 images, int64 masks, (B, X, Y,
+    Z) float32 ``mask_sdf`` / ``mask_sdf2``); the patch ids and locations
+    stay on the host."""
     out = {"image": torch.from_numpy(np.ascontiguousarray(
         batch["image"], dtype=np.float32))[:, None].to(device)}
     if "mask" in batch:
         out["mask"] = torch.from_numpy(np.asarray(batch["mask"])).to(
             device=device, dtype=torch.int64)
+    for k in ("mask_sdf", "mask_sdf2"):
+        if k in batch:
+            out[k] = torch.from_numpy(np.ascontiguousarray(
+                batch[k], dtype=np.float32)).to(device)
     return out
 
 

@@ -20,6 +20,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..hebb.layers import transposed_paths
 from ..models.registry import primary_logits
 from ..ops.ema import update_ema
 from ..ops.losses import entropy_loss, softmax_mse_loss, weighted_mean
@@ -38,7 +39,7 @@ def _detached(out):
 
 
 # ---------------------------------------------------------------------------
-# Single-model algorithms: EM, URPC, CCT
+# Single-model algorithms: EM, URPC, CCT, DTC
 # ---------------------------------------------------------------------------
 
 def make_semi_step(model, network: str, criterion, unsup_fn: Callable,
@@ -124,6 +125,32 @@ def deep4_sup(criterion):
     def fn(outputs, batch):
         mask = batch["mask"]
         return sum(criterion(o, mask) for o in outputs) / len(outputs)
+
+    return fn
+
+
+def dtc_unsup(outputs, batch):
+    """Dual-task consistency: the MSE between sigmoid(-1500 * sdf), the
+    SDF head mapped to a soft segmentation, and sigmoid(seg)."""
+    sdf, seg = outputs
+    return weighted_mean((torch.sigmoid(-1500.0 * sdf)
+                          - torch.sigmoid(seg)) ** 2, batch.get("weight"))
+
+
+def dtc_sup(criterion, beta=0.3, num_classes=2):
+    """DTC's supervised loss: the criterion on the segmentation head plus
+    beta times the MSE of the SDF head's class-1 channel to
+    ``mask_sdf`` (and of its class-2 channel to ``mask_sdf2`` at 3
+    classes)."""
+
+    def fn(outputs, batch):
+        sdf, seg = outputs
+        w = batch.get("weight")
+        loss_sdf = weighted_mean((sdf[:, 1] - batch["mask_sdf"]) ** 2, w)
+        if num_classes == 3 and "mask_sdf2" in batch:
+            loss_sdf = loss_sdf + weighted_mean(
+                (sdf[:, 2] - batch["mask_sdf2"]) ** 2, w)
+        return criterion(seg, batch["mask"]) + beta * loss_sdf
 
     return fn
 
@@ -358,13 +385,16 @@ class DualEvalMixin:
     def _save_best(self, threshold, epoch):
         save_snapshot(self.state.state_dict(self._winner),
                       self.paths.checkpoints, threshold=threshold,
-                      save_best=True, **self.hebb_meta)
+                      save_best=True,
+                      transposed=transposed_paths(self.state.model1),
+                      **self.hebb_meta)
 
     def _save_last(self, threshold):
         for which, path in ((1, self.paths.checkpoints),
                             (2, self.paths.checkpoints + "2")):
             save_snapshot(self.state.state_dict(which), path,
                           threshold=threshold, save_best=False,
+                          transposed=transposed_paths(self.state.model1),
                           **self.hebb_meta)
 
 

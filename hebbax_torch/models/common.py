@@ -1,6 +1,7 @@
 """Shared model ops (``hebbax/models/common.py``), channels-first: 2D and
-3D pooling, the align_corners bilinear and floor-indexed nearest resizes,
-flax-semantics batch norm (2D and 3D), and the CCT feature perturbations.
+3D pooling, the align_corners bilinear / trilinear and floor-indexed
+nearest resizes, instance norm, flax-semantics batch norm (2D and 3D),
+channel-wise 3D dropout, and the CCT feature perturbations (any rank).
 
 Each perturbation is split in two: ``draw_perturbation`` takes its random
 draw from an explicit ``torch.Generator``, and ``feature_noise`` /
@@ -12,6 +13,8 @@ hebbax's ``jax.random`` draws).
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.dropout import Dropout
 
 CCT_PERTURB_KINDS = ("noise", "dropout", "feature_dropout")
 CCT_DROPOUT_P = 0.3             # element dropout rate
@@ -29,11 +32,21 @@ def max_pool(x):
 
 
 def resize_linear_align_corners(x, out_spatial):
-    """Bilinear resize with align_corners=True (torch Upsample parity)."""
+    """Bilinear (4-D input) or trilinear (5-D) resize with
+    align_corners=True (torch Upsample parity)."""
     if tuple(x.shape[2:]) == tuple(out_spatial):
         return x
-    return F.interpolate(x, size=tuple(out_spatial), mode="bilinear",
+    return F.interpolate(x, size=tuple(out_spatial),
+                         mode="trilinear" if x.dim() == 5 else "bilinear",
                          align_corners=True)
+
+
+def instance_norm(x, eps=1e-5):
+    """torch InstanceNorm2d / 3d defaults: per sample and channel over the
+    spatial dims, biased variance, no affine, no running statistics."""
+    var, mean = torch.var_mean(x, dim=tuple(range(2, x.dim())),
+                               unbiased=False, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps)
 
 
 def resize_nearest_torch(x, out_spatial):
@@ -56,7 +69,8 @@ def resize_nearest_torch(x, out_spatial):
 
 def draw_perturbation(kind, x, generator=None):
     """The random draw of one perturbation of the feature map ``x``
-    (N, C, H, W): ``noise`` one (C, H, W) tensor shared across the batch,
+    (N, C, *spatial): ``noise`` one (C, *spatial) tensor shared across the
+    batch,
     ``dropout`` an elementwise boolean keep mask, ``feature_dropout`` one
     scalar fraction."""
     if kind == "noise":
@@ -78,7 +92,7 @@ def feature_dropout_elementwise(x, keep, p=CCT_DROPOUT_P):
 
 
 def feature_noise(x, noise):
-    """x * noise + x, the (C, H, W) noise shared across the batch."""
+    """x * noise + x, the (C, *spatial) noise shared across the batch."""
     return x * noise[None] + x
 
 
@@ -87,7 +101,7 @@ def feature_dropout_attention(x, frac):
     of its per-sample maximum."""
     attention = torch.mean(x, dim=1, keepdim=True)
     max_val = torch.amax(attention.reshape(x.shape[0], -1), dim=1)
-    threshold = (max_val * frac).reshape(-1, 1, 1, 1)
+    threshold = (max_val * frac).reshape((-1,) + (1,) * (x.dim() - 1))
     return x * (attention < threshold).to(x.dtype)
 
 
@@ -118,6 +132,21 @@ def cct_aux_outputs(clean_levels, perturb_one, decode, batched=False):
             "ported yet")
     pert = [perturb_one(kind) for kind in CCT_PERTURB_KINDS]
     return (decode(clean_levels), *[decode(p) for p in pert])
+
+
+class Dropout3d(Dropout):
+    """torch ``Dropout3d``: one keep bit per (sample, channel), drawn from
+    the caller's generator, the kept channels scaled by 1/(1-p) (hebbax's
+    ``nn.Dropout(p, broadcast_dims=(1, 2, 3))``).  Its stream differs from
+    hebbax's, as :class:`~hebbax_torch.ops.dropout.Dropout`'s does."""
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.empty(x.shape[:2] + (1,) * (x.dim() - 2),
+                           dtype=x.dtype, device=x.device).bernoulli_(
+            1.0 - self.p, generator=self.generator)
+        return x * keep * (1.0 / (1.0 - self.p))
 
 
 class BatchNorm2d(nn.Module):

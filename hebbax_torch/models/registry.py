@@ -1,13 +1,17 @@
 """Network registry (``hebbax/models/registry.py``), the networks ported
 so far: in 2D ``unet``, ``unet_urpc``, ``unet_cct`` and the unsupervised
 baselines ``unet_vae``, ``unet_superpix`` and ``unet_ddpm``; in 3D
-``unet3d`` and ``unet3d_min`` (32 initial features).  The folded
-``*_s2d`` names are registered on the same classes: their parameter trees
-are identical and the space-to-depth fold is a TPU layout, so the CLIs'
-default ``-n unet_s2d`` (``unet_urpc_s2d``, ``unet_cct_s2d``,
-``unet3d_s2d``) runs the unfolded network here; the baselines have no
-folded name in hebbax either.  ``unet_cct_s2d_batched`` (one 4N-batched decode, other training
-BN numerics) is not registered.
+``unet3d``, ``unet3d_dtc``, ``unet3d_cct``, ``unet3d_urpc``, and
+``unet3d_min`` / ``unet3d_cct_min`` (32 initial features).
+
+The folded ``*_s2d`` names are registered on the same classes: their
+parameter trees are identical and the space-to-depth fold is a TPU
+layout, so the CLIs' defaults (``unet_s2d``, ``unet3d_s2d``,
+``unet3d_urpc_s2d``, ...) run the unfolded network here; the baselines
+have no folded name in hebbax either.  ``unet3d_cct_s2d_rc`` is hebbax's
+remat policy for the shared decoder, with unchanged grads: it runs the
+plain ``UNet3DCCT`` (no recomputation) here.  The ``*_batched`` names (one
+4N-batched decode, other training BN numerics) are not registered.
 """
 
 from typing import Optional
@@ -16,10 +20,14 @@ from ..hebb.spec import HebbSpec
 from .ddpm import DDPMUNet
 from .unet2d import (UNet2D, UNetCCT2D, UNetSuperpix2D, UNetURPC2D,
                      UNetVAE2D)
-from .unet3d import UNet3D
+from .unet3d import UNet3D, UNet3DCCT, UNet3DDTC
+from .urpc3d import UNet3DURPC
 
 _DEEP4 = dict(nd=2, outputs="deep4")
 _CCT = dict(nd=2, outputs="deep4", rngs=("perturb",))
+_DEEP4_3D = dict(nd=3, outputs="deep4")
+_CCT_3D = dict(nd=3, outputs="deep4", rngs=("perturb",))
+_DTC_3D = dict(nd=3, outputs="dtc")
 
 # name -> (factory, metadata)
 _REGISTRY = {
@@ -36,6 +44,15 @@ _REGISTRY = {
     "unet3d_s2d": (UNet3D, dict(nd=3, outputs="single")),
     "unet3d_min": (lambda **kw: UNet3D(init_features=32, **kw),
                    dict(nd=3, outputs="single")),
+    "unet3d_dtc": (UNet3DDTC, _DTC_3D),
+    "unet3d_dtc_s2d": (UNet3DDTC, _DTC_3D),
+    "unet3d_cct": (UNet3DCCT, _CCT_3D),
+    "unet3d_cct_s2d": (UNet3DCCT, _CCT_3D),
+    "unet3d_cct_s2d_rc": (UNet3DCCT, _CCT_3D),
+    "unet3d_cct_min": (lambda **kw: UNet3DCCT(init_features=32, **kw),
+                       _CCT_3D),
+    "unet3d_urpc": (UNet3DURPC, _DEEP4_3D),
+    "unet3d_urpc_s2d": (UNet3DURPC, _DEEP4_3D),
 }
 
 
@@ -76,11 +93,14 @@ def get_network(name: str, in_channels: int, num_classes: int,
 def primary_logits(name: str, outputs):
     """The tensor driving metrics and model selection: the output of a
     single-output network and DDPMUNet's probe logits (its diffusion
-    paths are called explicitly), the VAE's ``output``, the first (finest /
-    clean / segmentation) of a tuple."""
+    paths are called explicitly), the VAE's ``output``, DTC's
+    segmentation (its second output), the first (finest / clean /
+    segmentation) of another tuple."""
     kind = network_meta(name)["outputs"]
     if kind in ("single", "ddpm"):
         return outputs
     if kind == "vae":
         return outputs["output"]
+    if kind == "dtc":
+        return outputs[1]
     return outputs[0]

@@ -1,6 +1,6 @@
-"""3D UNet (``hebbax/models/unet3d.py`` ``UNet3D``), NCDHW, with the same
-module names as hebbax so the parameter map to the flax tree is
-mechanical.
+"""3D UNet family (``hebbax/models/unet3d.py`` ``UNet3D``, ``UNet3DDTC``,
+``UNet3DCCT``), NCDHW, with the same module names as hebbax so the
+parameter map to the flax tree is mechanical.
 
 Classic 3D U-Net: double conv3-BN-ReLU blocks, maxpool2 downs,
 ConvTranspose3d(k=2, s=2) ups with the skip concatenated as ``[up, skip]``,
@@ -8,11 +8,16 @@ a 1x1x1 head ``conv``; init_features=64 (a 1024-channel bottleneck) for
 ``unet3d``, 32 for ``unet3d_min``.  It has 22 Hebbian sites: 18 3x3x3
 convs and the 4 transpose convs (the head is the pretraining's exclude).
 
+The variants share the encoder and decoder and differ in their heads:
+UNet3DDTC adds a tanh signed-distance head ``out_sdf`` beside the
+segmentation head ``out_seg``; UNet3DCCT runs one shared ``main_decoder``
+and head on the clean encoder levels and on three perturbed copies.
+
 Every conv is an HConv / HConvTranspose; a HebbSpec passed to the model
 makes the non-excluded ones Hebbian.  ``generator`` (CPU) draws the
-initial parameters, so a seed gives the same model on every device.  The
-other networks of hebbax's 3D zoo (DTC, CCT, URPC, VAE, superpixel, VNet)
-are not ported yet (``ROADMAP.md`` item 12b, 12c).
+initial parameters, so a seed gives the same model on every device;
+``perturb_generator`` (on the model's device) UNet3DCCT's perturbations.
+hebbax's VAE and superpixel variants are ROADMAP item 12c.
 """
 
 from typing import Optional
@@ -23,7 +28,8 @@ import torch.nn.functional as F
 
 from ..hebb.layers import HConv, HConvTranspose, bind_paths
 from ..hebb.spec import HebbSpec
-from .common import BatchNorm3d, max_pool
+from .common import (CCT_PERTURB_KINDS, BatchNorm3d, cct_aux_outputs,
+                     draw_perturbation, max_pool, perturb_features)
 
 
 class Block3D(nn.Module):
@@ -110,3 +116,79 @@ class UNet3D(nn.Module):
     def forward(self, x):
         feats, bottleneck = self.encoder(x)
         return self.conv(self.decoder(bottleneck, feats))
+
+
+class UNet3DDTC(nn.Module):
+    """Dual-task heads over the shared trunk: a tanh signed-distance head
+    ``out_sdf`` and the segmentation head ``out_seg``; returns
+    (sdf, seg)."""
+
+    def __init__(self, in_channels: int, n_cls: int,
+                 init_features: int = 64, hebb: Optional[HebbSpec] = None,
+                 init_type: str = "kaiming", device=None, generator=None,
+                 dropout_generator=None):
+        super().__init__()
+        del dropout_generator           # no dropout in this network
+        kw = dict(init_type=init_type, device=device, generator=generator)
+        self.encoder = Encoder3D(in_channels, init_features, **kw)
+        self.decoder = Decoder3D(init_features, **kw)
+        hk = dict(kernel_size=(1, 1, 1), **kw)
+        self.out_sdf = HConv(init_features, n_cls, **hk)
+        self.out_seg = HConv(init_features, n_cls, **hk)
+        self.hebb = hebb
+        bind_paths(self, hebb)
+
+    def forward(self, x):
+        feats, bottleneck = self.encoder(x)
+        dec = self.decoder(bottleneck, feats)
+        return torch.tanh(self.out_sdf(dec)), self.out_seg(dec)
+
+
+class UNet3DCCT(nn.Module):
+    """One shared decoder (``main_decoder`` + the 1x1x1 head ``conv``) run
+    on the clean encoder levels and on 3 perturbed copies (noise, dropout,
+    feature dropout) of all five levels, the bottleneck included.  Returns
+    (main, aux1, aux2, aux3).
+
+    A training forward always perturbs, drawing from ``perturb_generator``
+    through :meth:`draw_perturbations` (an instance may replace that
+    method to inject draws).  An eval forward skips the perturbed passes
+    and returns the main output four times: only the primary output is
+    read in eval.  Four serial decoder passes per training forward, so
+    every batch norm of the shared decoder takes four momentum updates.
+    """
+
+    def __init__(self, in_channels: int, n_cls: int,
+                 init_features: int = 64, hebb: Optional[HebbSpec] = None,
+                 init_type: str = "kaiming", device=None, generator=None,
+                 dropout_generator=None, perturb_generator=None):
+        super().__init__()
+        del dropout_generator           # no dropout in this network
+        kw = dict(init_type=init_type, device=device, generator=generator)
+        self.encoder = Encoder3D(in_channels, init_features, **kw)
+        self.main_decoder = Decoder3D(init_features, **kw)
+        self.conv = HConv(init_features, n_cls, kernel_size=(1, 1, 1), **kw)
+        self.perturb_generator = perturb_generator
+        self.hebb = hebb
+        bind_paths(self, hebb)
+
+    def decode(self, levels):
+        """levels: the four skip features, then the bottleneck."""
+        return self.conv(self.main_decoder(levels[-1], levels[:4]))
+
+    def draw_perturbations(self, levels):
+        """{kind: [draw per level]} for one training forward."""
+        return {kind: [draw_perturbation(kind, f, self.perturb_generator)
+                       for f in levels] for kind in CCT_PERTURB_KINDS}
+
+    def forward(self, x):
+        feats, bottleneck = self.encoder(x)
+        levels = feats + [bottleneck]
+        if not self.training:
+            main = self.decode(levels)
+            return main, main, main, main
+        draws = self.draw_perturbations(levels)
+        return cct_aux_outputs(
+            levels, lambda kind: perturb_features(levels, kind,
+                                                  draws=draws[kind]),
+            self.decode)

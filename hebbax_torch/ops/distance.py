@@ -8,7 +8,8 @@
   assd  = mean of (mean d(A->B), mean d(B->A)).
 
 :func:`eval_distance_offline` is the 3D tester's per-volume evaluation
-over saved predictions.
+over saved predictions; :func:`mask_to_sdf` makes the normalized signed
+distance maps (``mask_sdf1``) that DTC trains against.
 """
 
 import numpy as np
@@ -88,3 +89,29 @@ def eval_distance_offline(mask_list, pred_list, num_classes=2):
         hd_out.append(np.mean(hd_list))
         sd_out.append(np.mean(sd_list))
     return float(np.mean(hd_out)), float(np.mean(sd_out))
+
+
+def find_boundaries_inner(mask):
+    """skimage.segmentation.find_boundaries(mode='inner'): the foreground
+    voxels adjacent (full connectivity) to the background."""
+    mask = np.asarray(mask, bool)
+    structure = ndimage.generate_binary_structure(mask.ndim, mask.ndim)
+    eroded = ndimage.binary_erosion(mask, structure=structure,
+                                    border_value=1)
+    return (mask & ~eroded).astype(np.uint8)
+
+
+def mask_to_sdf(mask):
+    """Normalized signed distance field in [-1, 1]: positive outside the
+    foreground, negative inside, zero on its inner boundary; all zeros for
+    an empty mask."""
+    mask = np.asarray(mask, bool)
+    if not mask.any():
+        return np.zeros(mask.shape, np.float64)
+    posdis = ndimage.distance_transform_edt(mask)
+    negdis = ndimage.distance_transform_edt(~mask)
+    boundary = find_boundaries_inner(mask)
+    sdf = ((negdis - negdis.min()) / (negdis.max() - negdis.min())
+           - (posdis - posdis.min()) / (posdis.max() - posdis.min()))
+    sdf[boundary == 1] = 0
+    return sdf

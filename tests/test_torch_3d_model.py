@@ -141,8 +141,9 @@ def test_registry_names():
         m = get_network(name, 1, 2, device="meta")
         assert m.conv.weight.shape == (2, f, 1, 1, 1)
         assert m.encoder.bottleneck.conv2.weight.shape[0] == 16 * f
-    with pytest.raises(KeyError, match="unet3d_cct"):
-        get_network("unet3d_cct", 1, 2)
+    # the 4N-batched CCT decode is a TPU variant the port leaves out
+    with pytest.raises(KeyError, match="unet3d_cct_s2d_batched"):
+        get_network("unet3d_cct_s2d_batched", 1, 2)
 
 
 # -- snapshots ---------------------------------------------------------------

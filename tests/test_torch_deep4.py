@@ -68,14 +68,15 @@ CLASSES = {"unet": (junet.UNet2D, UNet2D),
 
 class DrawRecorder:
     """Records the draws of hebbax's CCT perturbations (when given a
-    monkeypatch) and replays them into a port model, one perturbation kind
-    at a time, in order."""
+    monkeypatch; ``module`` is the hebbax model module whose
+    ``perturb_features`` to wrap) and replays them into a port model, one
+    perturbation kind at a time, in order."""
 
-    def __init__(self, monkeypatch=None, records=()):
+    def __init__(self, monkeypatch=None, records=(), module=junet):
         self.records = list(records)
         if monkeypatch is None:
             return
-        orig = junet.perturb_features
+        orig = module.perturb_features
 
         def recording(key, feats, kind):
             keys = jax.random.split(key, len(feats))
@@ -86,7 +87,7 @@ class DrawRecorder:
                 *draws, ordered=True)
             return orig(key, feats, kind)
 
-        monkeypatch.setattr(junet, "perturb_features", recording)
+        monkeypatch.setattr(module, "perturb_features", recording)
 
     def install(self, tm):
         def draw_perturbations(feats):
