@@ -111,9 +111,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``torch.cuda.max_memory_allocated``; (q) ``test_3d --postprocessing
    True`` on each run's best_JI.ckpt, gates as (m); one ``semi_3d_path``
    line carries (n)–(q);
-9. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
-   urpc_pretrain, cct_pretrain and the paths of 6, 7 and 8), the card's
-   name and power limit, and last ``{"ok": true, "device": {...}}``.
+9. the rest of the paper's sweeps, none reaching K1 (0 launches on each
+   path): (r) training forwards on the card against the CPU, full width:
+   ``unet3d_vae`` (same eps) and ``unet3d_superpix`` at batch 2, 32^3;
+   ``snn_vgg`` at batch 2, 128x128, T=20 in float64 with the same
+   Poisson uniforms on both, its spike counts per site required equal
+   and outputs and BNTT statistics within 1e-9 of max(1, max|value|);
+   ``ann_vgg`` at batch 2, 128x128; the RAD-DINO ViT-B encoder at batch
+   2, 224x224 and the decoder on the CPU's patch grid; the float32
+   outputs within 1e-4 of max(1, max|output|); (s) ``pretrain_unsup_3d``
+   vae / superpix / superdiff over phase 7's volumes with the 3D
+   pretraining sweep's flags (Adam, lr 1e-4, batch 2, 96x96x80 patches,
+   superdiff on their central 96x96 slice at 1000 timesteps), 2 patches
+   per volume, 2 epochs: finite loss columns, last.ckpt, every non-head
+   parameter moved, steady and profiled steps, peak memory, and the 3D
+   superpixel prep timed apart; (t) ``train_semi_3d em -n unet3d_s2d
+   --load_weights`` from (s)'s vae and superpix snapshots (batch 2, SGD
+   lr 0.1, regime 50; the model equal to the snapshot before the first
+   step), timed likewise, then ``test_3d --postprocessing True`` on
+   each; (u) ``train_snn_sup_2d`` of ``snn_vgg`` at regime 20 and
+   ``ann_vgg`` at regime 100 (batch 2, 128x128, Adam lr 1e-3), then
+   ``test_snn_2d`` on each; (v) ``train_semi_raddino_decoder_2d`` at
+   224x224, batch 2, regime 20 (the encoder frozen and unchanged), then
+   ``test_raddino_decoder_2d``; one ``sweeps_tail_path`` line carries
+   (r)-(v);
+10. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
+   urpc_pretrain, cct_pretrain and the paths of 6, 7, 8 and 9), the
+   card's name and power limit, and last ``{"ok": true, "device":
+   {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
 and writes only under ``build/`` beside this file.
@@ -1569,6 +1594,430 @@ def phase_semi_3d(card, data_root, snap_k, device="0"):
     return launches, record
 
 
+# -- 9: the rest of the sweeps ----------------------------------------------
+
+# phase 9 cuts steps, not width: 2 patches per train and val volume
+SPV_3D_TAIL = SPV_3D_SEMI
+SNN_SIZE, RADDINO_SIZE = SIZE, 224
+TAIL_REGIME = 20                # the SNN and RAD-DINO semi sweeps' largest
+
+
+def max_rel(got, ref):
+    """Largest |got - ref| over max(1, max|ref|)."""
+    ref = ref.detach().cpu()
+    return (float((got.detach().cpu() - ref).abs().max())
+            / max(1.0, float(ref.abs().max())))
+
+
+class SpikeCounter:
+    """Counts the spikes of each LIF site while installed over
+    ``hebbax_torch.models.snn.spike`` (called site by site, timestep by
+    timestep)."""
+
+    def __init__(self, n_sites):
+        from hebbax_torch.models import snn
+        self.snn, self.n_sites = snn, n_sites
+        self.counts, self.calls = [0] * n_sites, 0
+
+    def __enter__(self):
+        self.orig = self.snn.spike
+
+        def counted(x, grad_type="Linear"):
+            out = self.orig(x, grad_type)
+            self.counts[self.calls % self.n_sites] += int(out.sum())
+            self.calls += 1
+            return out
+        self.snn.spike = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.snn.spike = self.orig
+
+
+def phase_tail_reference(device):
+    """(r) Training forwards at full width on the card against the same
+    weights on the CPU, no K1 launch: unet3d_vae (the same eps) and
+    unet3d_superpix at batch 2, 32^3; snn_vgg at batch 2, SNN_SIZE^2, T=20
+    in float64 with the same Poisson uniforms (spike counts per site
+    equal, outputs within 1e-9 of max(1, max|output|)); ann_vgg at batch
+    2, SNN_SIZE^2; the RAD-DINO ViT-B encoder at batch 2, 224^2 and the
+    decoder on the CPU's patch grid.  Outputs within 1e-4 of max(1,
+    max|output|) unless said."""
+    import torch
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.models import get_network, raddino, snn
+    from hebbax_torch.utils.seeding import make_generator
+
+    rng = np.random.default_rng(14)
+    out = {}
+
+    def pair(net, seed, in_ch=1):
+        return [get_network(net, in_ch, 2, device=dev,
+                            generator=make_generator(seed)).train()
+                for dev in (device, "cpu")]
+
+    def gate(name, pairs, tol=1e-4):
+        errs = {k: max_rel(g, c) for k, (g, c) in pairs.items()}
+        for k, e in errs.items():
+            check(e <= tol, f"(r) {name} {k}: card vs CPU differ by {e} of "
+                            f"max(1, max|output|)")
+        out[name] = errs
+        log(f"(r) small-input reference {name}: " + json.dumps(errs)
+            + ", 0 launches")
+
+    before = kernels.SWTA_DELTA.launches
+    x3 = torch.from_numpy(rng.standard_normal((2, 1, 32, 32, 32)).astype(
+        np.float32))
+    eps = torch.from_numpy(rng.standard_normal((2, 1024, 2, 2, 2)).astype(
+        np.float32))
+    for net in ("unet3d_vae", "unet3d_superpix"):
+        gpu, cpu = pair(net, 5)
+        with torch.no_grad():
+            if net == "unet3d_vae":
+                oc = cpu(x3, eps=eps)
+                og = gpu(x3.to(device), eps=eps.to(device))
+                pairs = {k: (og[k], oc[k]) for k in oc}
+            else:
+                pairs = dict(zip(("seg", "superpix"),
+                                 zip(gpu(x3.to(device)), cpu(x3))))
+        gate(net, pairs)
+        del gpu, cpu, pairs
+
+    gpu, cpu = [m.double() for m in pair("snn_vgg", 6, in_ch=3)]
+    x2 = torch.from_numpy(rng.uniform(-1, 1, (2, 3, SNN_SIZE, SNN_SIZE)))
+    uni = torch.from_numpy(rng.uniform(0, 1, (cpu.timesteps,) + x2.shape))
+    counts, ys = [], []
+    with torch.no_grad():
+        for m, dev in ((cpu, "cpu"), (gpu, device)):
+            with SpikeCounter(len(snn.FEATURES) + 1) as sc:
+                ys.append(m(x2.to(dev), uniforms=uni.to(dev)))
+            counts.append(sc.counts)
+    yc, yg = ys
+    check(counts[0] == counts[1], f"(r) snn_vgg spike counts per site "
+                                  f"differ: CPU {counts[0]}, card "
+                                  f"{counts[1]}")
+    check(sum(counts[0]) > 0, "(r) snn_vgg: no spike")
+    stats = {k: (v, cpu.state_dict()[k]) for k, v in gpu.state_dict().items()
+             if k.endswith(("_mean", "_var"))}
+    gate("snn_vgg", {"output": (yg, yc), **stats}, tol=1e-9)
+    out["snn_vgg"]["spikes_per_site"] = counts[0]
+    log(f"(r) snn_vgg spikes per site over T={cpu.timesteps}, batch 2: "
+        f"{counts[0]} (equal on both)")
+    del gpu, cpu, ys, yg, yc, stats
+
+    xa = torch.from_numpy(rng.standard_normal((2, 3, SNN_SIZE, SNN_SIZE))
+                          .astype(np.float32))
+    gpu, cpu = pair("ann_vgg", 7, in_ch=3)
+    with torch.no_grad():
+        gate("ann_vgg", {"output": (gpu(xa.to(device)), cpu(xa))})
+    del gpu, cpu
+
+    xr = torch.from_numpy(rng.standard_normal(
+        (2, 3, RADDINO_SIZE, RADDINO_SIZE)).astype(np.float32))
+    enc = [raddino.ViTEncoder(image_size=RADDINO_SIZE, device=dev,
+                              generator=make_generator(8)).eval()
+           for dev in (device, "cpu")]
+    dec = [raddino.RadDinoDecoder(2, out_size=RADDINO_SIZE, device=dev,
+                                  generator=make_generator(9)).train()
+           for dev in (device, "cpu")]
+    with torch.no_grad():
+        tok_g, tok_c = enc[0](xr.to(device)), enc[1](xr)
+        grid = raddino.reshape_patch_embeddings(tok_c, RADDINO_SIZE)
+        pairs = {"tokens": (tok_g, tok_c),
+                 "decoder": (dec[0](grid.to(device)), dec[1](grid))}
+    gate("raddino", pairs)
+    check(kernels.SWTA_DELTA.launches == before, "(r) a forward launched K1")
+    del enc, dec, pairs
+    release()
+    return out
+
+
+def run_path(trainer, tag, on, watch=()):
+    """Run ``trainer`` with its K1 launch count zeroed just before and read
+    just after: no launch, finite losses, best_JI.ckpt and last.ckpt, the
+    ``watch`` parameters moved; then 10 steady and 3 profiled steps, and
+    the peak memory of the run and its timed steps."""
+    import torch
+    from hebbax_torch.hebb import kernels
+
+    model = trainer.state.model
+    sd0 = model.state_dict()
+    w0 = {n: sd0[n].detach().clone() for n in watch}
+    times = []
+    raw_step = trainer.train_step
+    trainer.train_step = timed_step(raw_step, times)
+    kernels.SWTA_DELTA.launches = 0
+    trainer.run()
+    launches = kernels.SWTA_DELTA.launches
+    check(launches == 0, f"{tag} launched K1 {launches} times")
+    check(all_on(model, on), f"{tag}: a model tensor is off {on}")
+    losses, ok = finite_losses(trainer)
+    check(ok, f"{tag} losses {losses}")
+    for name in ("best_JI.ckpt", "last.ckpt"):
+        check(os.path.exists(os.path.join(trainer.paths.checkpoints, name)),
+              f"{tag} wrote no {name}")
+    sd = model.state_dict()
+    still = [n for n in watch if torch.equal(sd[n], w0[n])]
+    check(not still, f"{tag}: {still[:5]} ({len(still)}) did not move")
+    log(f"{tag}: {len(times)} steps, K1 launches {launches}, step ms "
+        f"{[round(t, 3) for t in times]}, losses {losses}")
+    steady = steady_step_ms(trainer, raw_step)
+    profiled = profile_steps(trainer, raw_step, float(np.median(steady)))
+    log(f"{tag} profile " + json.dumps(profiled))
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if on == "cuda"
+            else None)
+    if peak is not None:
+        log(f"{tag} peak memory {peak:.3f} GiB (torch.cuda."
+            f"max_memory_allocated, the run and its timed steps)")
+    return {"launches": launches, "steps": len(times), "step_ms": times,
+            "steady": steady, "profile": profiled, "peak_gib": peak,
+            "run": trainer.paths.run}
+
+
+def release():
+    """Free what the caller dropped before the next path allocates."""
+    import gc
+
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def reset_peak(on):
+    import torch
+    if on == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def phase_unsup_3d(data_root, device="0"):
+    """(s) pretrain_unsup_3d vae / superpix / superdiff with the 3D
+    pretraining sweep's flags (Adam, lr 1e-4, dice, batch 2, 96x96x80
+    patches, validation every epoch; superdiff on the patches' central
+    96x96 z-slice at 1000 timesteps), 2 patches per volume, 2 epochs,
+    warmup 1: no K1 launch, finite loss columns, last.ckpt, every
+    non-head parameter moved; steady and profiled steps, peak memory, and
+    the 3D superpixel prep timed apart over 10 batches."""
+    import torch
+    from hebbax_torch.cli import common3d
+    from hebbax_torch.cli import pretrain_unsup_3d as unsup3d
+
+    on = "cpu" if device == "cpu" else "cuda"
+    out, snaps, prep = {}, {}, None
+    for kind in unsup3d.KINDS:
+        key = f"{kind}3d_pretrain"
+        args = unsup3d.add_args(common3d.base_parser_3d(), kind).parse_args(
+            cli_base_3d(device, data_root, unsup3d.NETWORK_DEFAULT[kind])
+            + SPV_3D_TAIL + ["-b", "2", "--optimizer", "adam", "-l", "1e-4",
+                             "--loss", "dice", "--validate_iter", "1"])
+        reset_peak(on)
+        trainer = unsup3d.build(args, kind)
+        model = trainer.state.model
+        heads = tuple(h + "." for h in unsup3d.HEADS_3D[kind])
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        tag = f"(s) {key}"
+        rec = run_path(trainer, tag, on)
+        cols = ["loss", "loss_unsup"] + (["loss_superdiff"]
+                                         if kind == "superdiff" else [])
+        rows = trainer.train_log.rows
+        check(len(rows) == 2 and all(np.isfinite(r[c]) for r in rows
+                                     for c in cols),
+              f"{tag} train_log {[{c: r[c] for c in cols} for r in rows]}")
+        still = [n for n, p in model.named_parameters()
+                 if not n.startswith(heads) and torch.equal(p, p0[n])]
+        check(not still, f"{tag}: non-head parameters did not move: "
+                         f"{still[:5]} ({len(still)})")
+        snaps[kind] = os.path.join(trainer.paths.checkpoints, "last.ckpt")
+        if kind == "superpix":
+            batches = []
+            while len(batches) < 10:
+                batches.extend(trainer.loaders["train"])
+            prep = []
+            for batch in batches[:10]:
+                t0 = time.perf_counter()
+                unsup3d.superpix_masks_3d(batch["image"], args.seed)
+                prep.append((time.perf_counter() - t0) * 1e3)
+            log(f"(s) 3D superpix prep ms (10 batches of 2 patches "
+                f"{list(args.patch_size)}) {[round(t, 3) for t in prep]}")
+        out[key] = rec
+        del trainer, model, p0
+        release()
+    return out, snaps, prep
+
+
+def phase_em_3d(data_root, snaps, device="0"):
+    """(t) train_semi_3d em -n unet3d_s2d --load_weights on (s)'s vae and
+    superpix last.ckpt with the 3D semi sweep's flags (SGD, lr 0.1, dice,
+    unsup weight 5, batch 2, regime 50, validation every epoch), 2
+    patches per volume, 2 epochs: the model equal to the snapshot before
+    the first step (every entry it has, the head ``conv`` included; the
+    baseline's extras dropped), then run_path's gates; then test_3d
+    --postprocessing True on each run's best_JI.ckpt."""
+    from hebbax_torch.cli import common3d, train_semi_3d
+
+    on = "cpu" if device == "cpu" else "cuda"
+    out, tests = {}, {}
+    for kind in ("vae", "superpix"):
+        key = f"em3d_{kind}"
+        args = train_semi_3d.add_args(common3d.base_parser_3d(), "em")\
+            .parse_args(cli_base_3d(device, data_root, "unet3d_s2d")
+                        + SPV_3D_TAIL + [
+                            "-b", "2", "--regime", "50", "--optimizer",
+                            "sgd", "-l", "0.1", "--loss", "dice",
+                            "--unsup_weight", "5", "--validate_iter", "1",
+                            "--load_weights", snaps[kind]])
+        reset_peak(on)
+        trainer = train_semi_3d.build(args, "em")
+        differ = trunk_equal_to_snapshot(trainer.state.model, snaps[kind], ())
+        check(not differ, f"(t) {key}: the model differs from the "
+                          f"snapshot: {differ[:5]}")
+        out[key] = run_path(trainer, f"(t) {key}", on,
+                            watch=("encoder.encoder1.conv1.weight",))
+        del trainer
+        release()
+        out[f"test_{key}"], tests[key] = phase_3d_test(
+            data_root, out[key]["run"], device, net="unet3d_s2d",
+            hebbian=False, tag=f"(t) test {key}")
+    return out, tests
+
+
+def phase_snn(items, device="0"):
+    """(u) train_snn_sup_2d at batch 2, SNN_SIZE^2 with the SNN sweeps'
+    flags (Adam, lr 1e-3, dice, validation every 2 epochs): snn_vgg at
+    regime TAIL_REGIME (``semi_sup/kaiming_snn_vgg``) and ann_vgg at 100
+    (``fully_sup/ann_vgg``), 2 epochs, warmup 1, run_path's gates; then
+    test_snn_2d --best JI on each."""
+    from hebbax_torch.cli import common, test_snn_2d, train_snn_sup_2d
+    from hebbax_torch.config.datasets import dataset_cfg, input_stats
+    from hebbax_torch.data import Loader
+    from hebbax_torch.hebb import kernels
+
+    on = "cpu" if device == "cpu" else "cuda"
+    out, tests = {}, {}
+    mean, std = input_stats(dataset_cfg("GlaS"), "image")
+    for net, regime in (("snn_vgg", TAIL_REGIME), ("ann_vgg", 100)):
+        key = f"{net}_sup"
+        args = train_snn_sup_2d.add_args(common.base_parser_2d(
+            {"network": "snn_vgg"})).parse_args(cli_base(device) + [
+                "-n", net, "-b", "2", "--regime", str(regime),
+                "--optimizer", "adam", "-l", "1e-3", "--loss", "dice",
+                "--validate_iter", "2", "--debug", ""])
+        reset_peak(on)
+        trainer = train_snn_sup_2d.build(args, make_loaders(items, args,
+                                                            regime))
+        phase = "semi_sup" if regime < 100 else "fully_sup"
+        tag = f"kaiming_{net}" if regime < 100 else net
+        check(os.path.relpath(trainer.paths.run, RUN_DIR) == os.path.join(
+            "GlaS", phase, tag, "inv_temp-1", f"regime-{regime}", "run-0"),
+            f"(u) {key} run dir {trainer.paths.run}")
+        watch = ("feat0", "cls_atrous") if net == "snn_vgg" else (
+            "feat0.weight", "cls_atrous.weight")
+        out[key] = run_path(trainer, f"(u) {key}", on, watch=watch)
+        del trainer
+        release()
+        test_ds = array_dataset_class()(items["val"], mean, std, "test")
+        kernels.SWTA_DELTA.launches = 0
+        argv = ["--device", device, "--path_exp", out[key]["run"],
+                "--best", "JI", "-b", "2", "--num_workers", "4"]
+        metrics = test_snn_2d.main(
+            argv + ([] if net == "snn_vgg" else ["-n", net]),
+            Loader(test_ds, 2, num_workers=4))
+        out[f"test_{net}"] = kernels.SWTA_DELTA.launches
+        check(out[f"test_{net}"] == 0, f"(u) test {net} launched K1")
+        check(metrics is not None and all(np.isfinite(v)
+                                          for v in metrics.values())
+              and 0.0 <= metrics["segm/dice"] <= 1.0,
+              f"(u) test {net} metrics {metrics}")
+        tests[net] = metrics
+        log(f"(u) test {net}: Dice {metrics['segm/dice']:.4f} Jaccard "
+            f"{metrics['segm/jaccard']:.4f}")
+    return out, tests
+
+
+def phase_raddino(items, device="0"):
+    """(v) train_semi_raddino_decoder_2d with the sweep's flags (Adam, lr
+    1e-3, dice, unsup weight 5, batch 2, regime TAIL_REGIME, validation
+    every 2 epochs) at 224^2, 2 epochs, warmup 1: run_path's gates, the
+    ViT-B encoder frozen and unchanged, the decoder moved; then
+    test_raddino_decoder_2d --best JI (its encoder from seed 0, as
+    hebbax's tester)."""
+    import torch
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import test_raddino_decoder_2d as rtest
+    from hebbax_torch.cli import train_semi_raddino_decoder_2d as rtrain
+    from hebbax_torch.config.datasets import dataset_cfg, input_stats
+    from hebbax_torch.data import Loader
+    from hebbax_torch.hebb import kernels
+
+    on = "cpu" if device == "cpu" else "cuda"
+    args = rtrain.add_args(common.base_parser_2d()).parse_args(
+        cli_base(device) + ["-b", "2", "--regime", str(TAIL_REGIME),
+                            "--optimizer", "adam", "-l", "1e-3", "--loss",
+                            "dice", "--unsup_weight", "5",
+                            "--validate_iter", "2", "--debug", ""])
+    reset_peak(on)
+    trainer = rtrain.build(args, make_semi_loaders(items, args, TAIL_REGIME),
+                           image_size=RADDINO_SIZE)
+    check(not trainer.encoder_pretrained, "(v) the encoder is not random")
+    enc0 = {k: v.clone() for k, v in trainer.encoder.state_dict().items()}
+    check(not any(p.requires_grad for p in trainer.encoder.parameters()),
+          "(v) an encoder parameter takes grad")
+    out = {"raddino_semi": run_path(
+        trainer, "(v) raddino_semi", on,
+        watch=("deconv1.weight", "out.weight", "bn1.weight"))}
+    check(all(torch.equal(v, enc0[k])
+              for k, v in trainer.encoder.state_dict().items()),
+          "(v) the frozen encoder moved")
+    del trainer, enc0
+    release()
+    mean, std = input_stats(dataset_cfg("GlaS"), "image")
+    test_ds = array_dataset_class()(items["val"], mean, std, "test",
+                                    size=(RADDINO_SIZE, RADDINO_SIZE))
+    kernels.SWTA_DELTA.launches = 0
+    metrics = rtest.run_test(rtest.build_parser().parse_args(
+        ["--device", device, "--path_exp", out["raddino_semi"]["run"],
+         "--best", "JI", "-b", "2", "--num_workers", "4"]),
+        Loader(test_ds, 2, num_workers=4), image_size=RADDINO_SIZE)
+    out["test_raddino"] = kernels.SWTA_DELTA.launches
+    check(out["test_raddino"] == 0, "(v) the tester launched K1")
+    check(all(np.isfinite(v) for v in metrics.values())
+          and 0.0 <= metrics["segm/dice"] <= 1.0,
+          f"(v) test metrics {metrics}")
+    log(f"(v) test raddino: Dice {metrics['segm/dice']:.4f} Jaccard "
+        f"{metrics['segm/jaccard']:.4f}")
+    return out, metrics
+
+
+def phase_sweeps_tail(card, items, data_root, device="0"):
+    """Phase 9: (r)-(v) over phase 4's images and phase 7's volumes;
+    returns the launches by path and the ``sweeps_tail_path`` record."""
+    ref = phase_tail_reference(card)
+    rec_s, snaps, prep = phase_unsup_3d(data_root, device)
+    rec_t, tests_t = phase_em_3d(data_root, snaps, device)
+    rec_u, tests_u = phase_snn(items, device)
+    rec_v, test_v = phase_raddino(items, device)
+    paths = {**rec_s, **rec_t, **rec_u, **rec_v}
+    launches = {k: (v["launches"] if isinstance(v, dict) else v)
+                for k, v in paths.items()}
+    runs = {k: v for k, v in paths.items() if isinstance(v, dict)}
+    record = {
+        "launches": launches,
+        "steps": {k: v["steps"] for k, v in runs.items()},
+        "step_ms": {k: v["step_ms"] for k, v in runs.items()},
+        "steady_step_ms": summary({k: v["steady"] for k, v in runs.items()}),
+        "profile": profile_summary({k: v["profile"]
+                                    for k, v in runs.items()}),
+        "peak_gib": {k: v["peak_gib"] for k, v in runs.items()},
+        "superpix3d_prep_ms": {"median": float(np.median(prep)),
+                               "min": min(prep), "max": max(prep),
+                               "batch": 2},
+        "card_vs_cpu": ref,
+        "test": {**tests_t, **tests_u, "raddino": test_v},
+        "patch": list(PATCH), "snn_size": SNN_SIZE,
+        "raddino_size": RADDINO_SIZE}
+    return launches, record
+
+
 def profile_summary(profiled):
     return {k: {"device_ms": v["device_ms"], "busy_share": v["busy_share"],
                 "groups_ms": v["groups_ms"], "top_ms": v["top_ms"][:3]}
@@ -1654,6 +2103,11 @@ def main():
     log("semi_3d_path " + json.dumps(record_8))
     lap(8)
 
+    l_9, record_9 = phase_sweeps_tail(device, items, data_root)
+    launches.update(l_9)
+    log("sweeps_tail_path " + json.dumps(record_9))
+    lap(9)
+
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -1669,7 +2123,7 @@ def main():
             "a", "urpc_pretrain", "cct_pretrain", "vae_pretrain",
             "superpix_pretrain", "superdiff_pretrain", "em_vae",
             "em_superpix", "test_em_vae", "test_em_superpix",
-            "pretrain_3d", "sup_3d", "test_3d", *l_8)},
+            "pretrain_3d", "sup_3d", "test_3d", *l_8, *l_9)},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],

@@ -130,15 +130,24 @@ def pretrain_base_network(name):
 def new_model(args, cfg, device, hebb=None):
     """The network named by args, initialised from args.seed (on the CPU,
     so a seed gives the same weights on every device), on ``device``;
-    dropout draws from seed+1, CCT perturbations from seed+2 and the VAE
-    latent from seed+3."""
+    dropout draws from seed+1 and the network's own streams
+    (:func:`stream_generators`) from theirs."""
     return get_network(
         args.network, cfg["IN_CHANNELS"], cfg["NUM_CLASSES"],
         init_type=args.init_weights, hebb=hebb, device=device,
         generator=make_generator(args.seed),
         dropout_generator=make_generator(args.seed + 1, device),
-        perturb_generator=make_generator(args.seed + 2, device),
-        latent_generator=make_generator(args.seed + 3, device))
+        **stream_generators(args.seed, device))
+
+
+def stream_generators(seed, device):
+    """The generators of the networks' own random streams on ``device``:
+    CCT perturbations from seed+2, the VAE latent from seed+3 and the
+    SNN's Poisson spikes from seed+4 (the keyword arguments of
+    :func:`hebbax_torch.models.get_network`)."""
+    return {"perturb_generator": make_generator(seed + 2, device),
+            "latent_generator": make_generator(seed + 3, device),
+            "poisson_generator": make_generator(seed + 4, device)}
 
 
 def load_snapshot_into(model, state, reinit=()):

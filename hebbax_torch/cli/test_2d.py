@@ -28,7 +28,8 @@ from ..utils.checkpoint import load_state_dict
 from ..utils.images import save_preds
 from ..utils.logging import BoxPrinter, write_csv
 from ..utils.seeding import init_seeds, make_generator
-from .common import load_snapshot_into, resolve_device
+from .common import (load_snapshot_into, resolve_device,
+                     stream_generators)
 
 
 def build_parser():
@@ -88,9 +89,12 @@ def run_test(args, loader=None):
               "--hebbian_pretrain is not set; the weight-normalized "
               "forward will NOT be applied and metrics will be wrong "
               "(same footgun as the reference's test_2d.py)")
+    # a network with its own random streams (the SNN's Poisson input)
+    # draws them in eval too, as hebbax's eval step gets a key for it
     model = get_network(args.network, cfg["IN_CHANNELS"],
                         cfg["NUM_CLASSES"], hebb=hebb, device=device,
-                        generator=make_generator(args.seed))
+                        generator=make_generator(args.seed),
+                        **stream_generators(args.seed, device))
     # entries of modules the network lacks (an EM run from a baseline
     # snapshot keeps mu / var / reconstr in hebbax) are ignored
     load_snapshot_into(model, state)

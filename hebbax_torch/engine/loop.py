@@ -14,7 +14,7 @@ import time
 import numpy as np
 import torch
 
-from ..hebb.layers import transposed_paths
+from ..bridge import kernel_layout
 from ..ops.metrics import make_accumulator
 from ..utils import images as image_utils
 from ..utils.checkpoint import save_snapshot
@@ -90,13 +90,13 @@ class SupTrainer:
     def _save_best(self, threshold, epoch):
         save_snapshot(self.state.state_dict(), self.paths.checkpoints,
                       threshold=threshold, save_best=True,
-                      transposed=transposed_paths(self.state.model),
+                      **kernel_layout(self.state.model),
                       **self.hebb_meta)
 
     def _save_last(self, threshold):
         save_snapshot(self.state.state_dict(), self.paths.checkpoints,
                       threshold=threshold, save_best=False,
-                      transposed=transposed_paths(self.state.model),
+                      **kernel_layout(self.state.model),
                       **self.hebb_meta)
 
     def train_epoch(self, epoch, collect_metrics):

@@ -20,7 +20,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..hebb.layers import transposed_paths
+from ..bridge import kernel_layout
 from ..models.registry import primary_logits
 from ..ops.ema import update_ema
 from ..ops.losses import entropy_loss, softmax_mse_loss, weighted_mean
@@ -386,7 +386,7 @@ class DualEvalMixin:
         save_snapshot(self.state.state_dict(self._winner),
                       self.paths.checkpoints, threshold=threshold,
                       save_best=True,
-                      transposed=transposed_paths(self.state.model1),
+                      **kernel_layout(self.state.model1),
                       **self.hebb_meta)
 
     def _save_last(self, threshold):
@@ -394,7 +394,7 @@ class DualEvalMixin:
                             (2, self.paths.checkpoints + "2")):
             save_snapshot(self.state.state_dict(which), path,
                           threshold=threshold, save_best=False,
-                          transposed=transposed_paths(self.state.model1),
+                          **kernel_layout(self.state.model1),
                           **self.hebb_meta)
 
 

@@ -1,7 +1,8 @@
-"""Shared model ops (``hebbax/models/common.py``), channels-first: 2D and
-3D pooling, the align_corners bilinear / trilinear and floor-indexed
-nearest resizes, instance norm, flax-semantics batch norm (2D and 3D),
-channel-wise 3D dropout, and the CCT feature perturbations (any rank).
+"""Shared model ops (``hebbax/models/common.py``), channels-first: flax's
+lecun-normal init, 2D and 3D pooling, the align_corners bilinear /
+trilinear and floor-indexed nearest resizes, instance norm,
+flax-semantics batch norm (2D and 3D), channel-wise 3D dropout, and the
+CCT feature perturbations (any rank).
 
 Each perturbation is split in two: ``draw_perturbation`` takes its random
 draw from an explicit ``torch.Generator``, and ``feature_noise`` /
@@ -9,6 +10,8 @@ draw from an explicit ``torch.Generator``, and ``feature_noise`` /
 given draw, so a caller can pass draws in as tensors (the tests pass
 hebbax's ``jax.random`` draws).
 """
+
+import math
 
 import torch
 import torch.nn as nn
@@ -20,6 +23,24 @@ CCT_PERTURB_KINDS = ("noise", "dropout", "feature_dropout")
 CCT_DROPOUT_P = 0.3             # element dropout rate
 CCT_NOISE_RANGE = 0.3           # multiplicative noise ~ U(-r, r)
 CCT_FRAC_RANGE = (0.7, 0.9)     # attention threshold fraction ~ U(lo, hi)
+
+
+# std of a unit normal truncated to [-2, 2]: flax divides by it so the
+# truncated draw keeps the variance asked for
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight, fan_in, generator=None):
+    """flax's default kernel init into ``weight``: a normal truncated at 2
+    standard deviations, variance 1/fan_in, drawn on the CPU from
+    ``generator``."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    w = torch.empty(weight.shape)
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+    with torch.no_grad():
+        weight.copy_(w)
+    return weight
 
 
 def max_pool(x):
@@ -158,12 +179,15 @@ class BatchNorm2d(nn.Module):
     momentum 0.9); ``running_var`` takes the BIASED batch variance, as
     flax does (stock ``nn.BatchNorm2d`` takes the unbiased one); the scale
     initialises to N(1, 0.02) (the reference's 2D init_weights), drawn on
-    the CPU from ``generator``.
+    the CPU from ``generator``.  A subclass may set ``gain_init = None``
+    (scale ones), another ``eps``, or ``use_bias = False`` (a scale-only
+    norm: flax's ``use_bias=False``, no ``bias`` entry).
     """
 
     eps = 1e-5
     momentum = 0.1
     gain_init = 0.02
+    use_bias = True
 
     def __init__(self, features: int, device=None, generator=None):
         super().__init__()
@@ -173,7 +197,8 @@ class BatchNorm2d(nn.Module):
             scale = 1.0 + self.gain_init * torch.randn(features,
                                                        generator=generator)
         self.weight = nn.Parameter(scale.to(device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                     if self.use_bias else None)
         self.register_buffer("running_mean",
                              torch.zeros(features, device=device))
         self.register_buffer("running_var",
@@ -191,8 +216,8 @@ class BatchNorm2d(nn.Module):
             self.running_var.lerp_(var.detach(), self.momentum)
         inv = torch.rsqrt(var + self.eps)
         view = (1, -1) + (1,) * (x.dim() - 2)
-        return ((x - mean.view(view)) * (inv * self.weight).view(view)
-                + self.bias.view(view))
+        y = (x - mean.view(view)) * (inv * self.weight).view(view)
+        return y if self.bias is None else y + self.bias.view(view)
 
 
 class BatchNorm3d(BatchNorm2d):

@@ -29,16 +29,11 @@ import torch.nn.functional as F
 
 from ..hebb.layers import HConv, bind_paths
 from ..hebb.spec import HebbSpec
-from .common import max_pool
+from .common import lecun_normal_, max_pool
 from .unet2d import ConvBlockLeaky, UpBlock2D
 
 DIMS = (64, 64, 128, 256, 512)
 DROPOUT = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5)
-# std of a unit normal truncated to [-2, 2]: flax divides by it so the
-# truncated draw keeps the variance asked for
-_TRUNC_STD = 0.87962566103423978
-
-
 def sinusoidal_pos_emb(t, dim, theta=10000.0):
     """[sin, cos] of t * exp(-log(theta) * i / (half - 1)), i < dim // 2."""
     half = dim // 2
@@ -52,12 +47,8 @@ def dense(in_features, out_features, device=None, generator=None):
     """``nn.Linear`` initialised like flax's ``nn.Dense``: lecun-normal
     weight drawn on the CPU from ``generator``, zero bias."""
     layer = nn.Linear(in_features, out_features, device=device)
-    std = math.sqrt(1.0 / in_features) / _TRUNC_STD
-    w = torch.empty(out_features, in_features)
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
+    lecun_normal_(layer.weight, in_features, generator)
     with torch.no_grad():
-        layer.weight.copy_(w)
         layer.bias.zero_()
     return layer
 

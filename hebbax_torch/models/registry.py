@@ -1,8 +1,11 @@
 """Network registry (``hebbax/models/registry.py``), the networks ported
 so far: in 2D ``unet``, ``unet_urpc``, ``unet_cct`` and the unsupervised
 baselines ``unet_vae``, ``unet_superpix`` and ``unet_ddpm``; in 3D
-``unet3d``, ``unet3d_dtc``, ``unet3d_cct``, ``unet3d_urpc``, and
-``unet3d_min`` / ``unet3d_cct_min`` (32 initial features).
+``unet3d``, ``unet3d_dtc``, ``unet3d_cct``, ``unet3d_urpc``,
+``unet3d_min`` / ``unet3d_cct_min`` (32 initial features) and the
+unsupervised baselines ``unet3d_vae`` and ``unet3d_superpix``; the
+spiking VGG9 ``snn_vgg`` and its non-spiking twin ``ann_vgg``.  (The
+RAD-DINO encoder and decoder are built by their trainer, as in hebbax.)
 
 The folded ``*_s2d`` names are registered on the same classes: their
 parameter trees are identical and the space-to-depth fold is a TPU
@@ -20,7 +23,9 @@ from ..hebb.spec import HebbSpec
 from .ddpm import DDPMUNet
 from .unet2d import (UNet2D, UNetCCT2D, UNetSuperpix2D, UNetURPC2D,
                      UNetVAE2D)
-from .unet3d import UNet3D, UNet3DCCT, UNet3DDTC
+from .snn import ANNVGG, SNNVGG
+from .unet3d import (UNet3D, UNet3DCCT, UNet3DDTC, UNet3DSuperpix,
+                     UNet3DVAE)
 from .urpc3d import UNet3DURPC
 
 _DEEP4 = dict(nd=2, outputs="deep4")
@@ -28,6 +33,20 @@ _CCT = dict(nd=2, outputs="deep4", rngs=("perturb",))
 _DEEP4_3D = dict(nd=3, outputs="deep4")
 _CCT_3D = dict(nd=3, outputs="deep4", rngs=("perturb",))
 _DTC_3D = dict(nd=3, outputs="dtc")
+
+
+def _vgg(cls):
+    """SNNVGG / ANNVGG from the registry's keywords: no Hebbian conv, and
+    xavier init whatever ``init_type`` says (as in hebbax)."""
+    def factory(in_channels, n_cls, init_type=None, hebb=None, device=None,
+                generator=None, dropout_generator=None, **kw):
+        del init_type, dropout_generator
+        if hebb is not None:
+            raise ValueError(f"{cls.__name__} has no Hebbian conv")
+        return cls(in_channels, n_cls, device=device, generator=generator,
+                   **kw)
+    return factory
+
 
 # name -> (factory, metadata)
 _REGISTRY = {
@@ -40,6 +59,9 @@ _REGISTRY = {
     "unet_vae": (UNetVAE2D, dict(nd=2, outputs="vae", rngs=("latent",))),
     "unet_superpix": (UNetSuperpix2D, dict(nd=2, outputs="superpix")),
     "unet_ddpm": (DDPMUNet, dict(nd=2, outputs="ddpm")),
+    "snn_vgg": (_vgg(SNNVGG), dict(nd=2, outputs="single",
+                                   rngs=("poisson",))),
+    "ann_vgg": (_vgg(ANNVGG), dict(nd=2, outputs="single")),
     "unet3d": (UNet3D, dict(nd=3, outputs="single")),
     "unet3d_s2d": (UNet3D, dict(nd=3, outputs="single")),
     "unet3d_min": (lambda **kw: UNet3D(init_features=32, **kw),
@@ -53,6 +75,8 @@ _REGISTRY = {
                        _CCT_3D),
     "unet3d_urpc": (UNet3DURPC, _DEEP4_3D),
     "unet3d_urpc_s2d": (UNet3DURPC, _DEEP4_3D),
+    "unet3d_vae": (UNet3DVAE, dict(nd=3, outputs="vae", rngs=("latent",))),
+    "unet3d_superpix": (UNet3DSuperpix, dict(nd=3, outputs="superpix")),
 }
 
 
@@ -73,16 +97,16 @@ def network_meta(name: str) -> dict:
 def get_network(name: str, in_channels: int, num_classes: int,
                 init_type: str = "kaiming", hebb: Optional[HebbSpec] = None,
                 device=None, generator=None, dropout_generator=None,
-                perturb_generator=None, latent_generator=None):
+                perturb_generator=None, latent_generator=None,
+                poisson_generator=None):
     """Build a model module on ``device``; ``perturb_generator`` goes to
     the networks that draw perturbations (the ``perturb`` rng),
-    ``latent_generator`` to those that draw a latent (``latent``)."""
+    ``latent_generator`` to those that draw a latent (``latent``),
+    ``poisson_generator`` to those that draw spikes (``poisson``)."""
     meta = network_meta(name)
-    kw = {}
-    if "perturb" in meta["rngs"]:
-        kw["perturb_generator"] = perturb_generator
-    if "latent" in meta["rngs"]:
-        kw["latent_generator"] = latent_generator
+    streams = {"perturb": perturb_generator, "latent": latent_generator,
+               "poisson": poisson_generator}
+    kw = {f"{r}_generator": streams[r] for r in meta["rngs"]}
     factory = _REGISTRY[name][0]
     return factory(in_channels=in_channels, n_cls=num_classes,
                    init_type=init_type, hebb=hebb, device=device,

@@ -16,8 +16,13 @@ and head on the clean encoder levels and on three perturbed copies.
 Every conv is an HConv / HConvTranspose; a HebbSpec passed to the model
 makes the non-excluded ones Hebbian.  ``generator`` (CPU) draws the
 initial parameters, so a seed gives the same model on every device;
-``perturb_generator`` (on the model's device) UNet3DCCT's perturbations.
-hebbax's VAE and superpixel variants are ROADMAP item 12c.
+``perturb_generator`` (on the model's device) UNet3DCCT's perturbations,
+``latent_generator`` UNet3DVAE's latent.
+
+The unsupervised baselines: UNet3DVAE puts 1x1x1 ``mu`` / ``var`` on the
+bottleneck and decodes the reparameterized latent into a segmentation head
+``conv`` and a reconstruction head ``reconstr``; UNet3DSuperpix adds a
+2-class head ``out_superpix`` beside ``conv``.
 """
 
 from typing import Optional
@@ -192,3 +197,78 @@ class UNet3DCCT(nn.Module):
             levels, lambda kind: perturb_features(levels, kind,
                                                   draws=draws[kind]),
             self.decode)
+
+
+class UNet3DVAE(nn.Module):
+    """1x1x1 ``mu`` / ``var`` (16f -> 16f) on the bottleneck, the
+    reparameterized latent ``eps * exp(0.5 * log_var) + mu`` into the
+    decoder in place of the bottleneck, then the 1x1x1 heads ``conv``
+    (segmentation) and ``reconstr`` (in_channels).  Returns {'output',
+    'mu', 'log_var', 'reconstr'}.
+
+    eps is drawn from ``latent_generator`` on every forward, eval
+    included, through :meth:`draw_latent` (an instance may replace it, or
+    a caller pass ``eps``); without a generator eps is 0, as hebbax's is
+    without a ``latent`` rng.
+    """
+
+    def __init__(self, in_channels: int, n_cls: int,
+                 init_features: int = 64, hebb: Optional[HebbSpec] = None,
+                 init_type: str = "kaiming", device=None, generator=None,
+                 dropout_generator=None, latent_generator=None):
+        super().__init__()
+        del dropout_generator           # no dropout in this network
+        kw = dict(init_type=init_type, device=device, generator=generator)
+        f = init_features
+        hk = dict(kernel_size=(1, 1, 1), **kw)
+        self.encoder = Encoder3D(in_channels, f, **kw)
+        self.mu = HConv(f * 16, f * 16, **hk)
+        self.var = HConv(f * 16, f * 16, **hk)
+        self.decoder = Decoder3D(f, **kw)
+        self.conv = HConv(f, n_cls, **hk)
+        self.reconstr = HConv(f, in_channels, **hk)
+        self.latent_generator = latent_generator
+        self.hebb = hebb
+        bind_paths(self, hebb)
+
+    def draw_latent(self, std):
+        if self.latent_generator is None:
+            return torch.zeros_like(std)
+        return torch.randn(std.shape, dtype=std.dtype, device=std.device,
+                           generator=self.latent_generator)
+
+    def forward(self, x, eps=None):
+        feats, bottleneck = self.encoder(x)
+        mu = self.mu(bottleneck)
+        log_var = self.var(bottleneck)
+        std = torch.exp(0.5 * log_var)
+        if eps is None:
+            eps = self.draw_latent(std)
+        dec = self.decoder(eps * std + mu, feats)
+        return {"output": self.conv(dec), "mu": mu, "log_var": log_var,
+                "reconstr": self.reconstr(dec)}
+
+
+class UNet3DSuperpix(nn.Module):
+    """UNet3D with a 2-class 1x1x1 head ``out_superpix`` beside the
+    segmentation head ``conv``; returns (seg, superpix)."""
+
+    def __init__(self, in_channels: int, n_cls: int,
+                 init_features: int = 64, hebb: Optional[HebbSpec] = None,
+                 init_type: str = "kaiming", device=None, generator=None,
+                 dropout_generator=None):
+        super().__init__()
+        del dropout_generator           # no dropout in this network
+        kw = dict(init_type=init_type, device=device, generator=generator)
+        hk = dict(kernel_size=(1, 1, 1), **kw)
+        self.encoder = Encoder3D(in_channels, init_features, **kw)
+        self.decoder = Decoder3D(init_features, **kw)
+        self.conv = HConv(init_features, n_cls, **hk)
+        self.out_superpix = HConv(init_features, 2, **hk)
+        self.hebb = hebb
+        bind_paths(self, hebb)
+
+    def forward(self, x):
+        feats, bottleneck = self.encoder(x)
+        dec = self.decoder(bottleneck, feats)
+        return self.conv(dec), self.out_superpix(dec)

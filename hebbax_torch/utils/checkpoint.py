@@ -234,10 +234,10 @@ def _write(out, meta, variables):
 
 def save_snapshot(state_dict, path, threshold=None, save_best=False,
                   hebb_params=None, layers_excluded=None, extra=None,
-                  transposed=None):
+                  transposed=None, flipped=None):
     """Write ``best_JI.ckpt`` (save_best) or ``last.ckpt`` into ``path``
-    from a model ``state_dict``; ``transposed``: the model's transpose
-    conv paths (:func:`hebbax_torch.hebb.layers.transposed_paths`)."""
+    from a model ``state_dict``; ``transposed`` / ``flipped``: the model's
+    transpose conv paths (:func:`hebbax_torch.bridge.kernel_layout`)."""
     from ..bridge import to_flax
 
     os.makedirs(path, exist_ok=True)
@@ -249,7 +249,7 @@ def save_snapshot(state_dict, path, threshold=None, save_best=False,
     }
     if extra:
         meta.update(extra)
-    params, batch_stats = to_flax(state_dict, transposed)
+    params, batch_stats = to_flax(state_dict, transposed, flipped)
     variables = {"params": params}
     if batch_stats:
         variables["batch_stats"] = batch_stats
@@ -268,13 +268,13 @@ def load_snapshot(path):
     return variables, meta
 
 
-def load_state_dict(path, transposed=None):
+def load_state_dict(path, transposed=None, flipped=None):
     """Return (state_dict, meta) from a snapshot file; the state_dict
-    holds CPU tensors under the port's parameter names.  ``transposed``:
-    the transpose conv paths of the model it is for (needed where a
-    kernel is 5-D)."""
+    holds CPU tensors under the port's parameter names.  ``transposed`` /
+    ``flipped``: the transpose conv paths of the model it is for (needed
+    where a kernel is 5-D, or in flax's orientation)."""
     from ..bridge import from_flax
 
     variables, meta = load_snapshot(path)
     return from_flax(variables["params"], variables.get("batch_stats"),
-                     transposed), meta
+                     transposed, flipped), meta

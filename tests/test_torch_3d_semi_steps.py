@@ -20,7 +20,12 @@ weight decay 5e-5, the pretraining Adam, on the warmup+StepLR schedule
 Tolerances, from test_torch_3d_steps.py: losses rtol 1e-4 (loss,
 loss_sup, loss_unsup per step); parameters and BN statistics rtol 1e-4 /
 atol 1e-5; after Adam at most 1% of a tensor's elements may miss that
-bound, by no more than the step's full travel (lr 1e-3).  (The deltas
+bound, by no more than twice the step's full travel (2 x lr 1e-3): where
+an element's Adam moments are float32 noise in both packages (seen:
+``conv4.conv1.weight[110, 6, 1, 1, 0]`` of the URPC pretraining, exp_avg
+2.5e-7 / exp_avg_sq 7.4e-15 here, mu -1.4e-8 / nu 2.9e-17 in hebbax), the
+normalised update can take opposite signs, -6.7e-4 against +5.7e-4, a
+miss of 1.24e-3 that one travel does not bound.  (The deltas
 of a pretraining forward are held in test_torch_3d_semi_nets.py.)  One
 compile of hebbax's step per algorithm (module scope).
 """
@@ -137,7 +142,8 @@ def compare_state(jparams, jstats, tm, adam=False):
         if adam:
             far = np.abs(got - v) > 1e-5 + 1e-4 * np.abs(v)
             assert far.mean() <= 1e-2, (name, int(far.sum()))
-            np.testing.assert_allclose(got, v, rtol=0, atol=1e-3,
+            # two travels: a noise-level element may move either way
+            np.testing.assert_allclose(got, v, rtol=0, atol=2e-3,
                                        err_msg=name)
         else:
             np.testing.assert_allclose(got, v, rtol=1e-4, atol=1e-5,

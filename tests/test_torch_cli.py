@@ -157,6 +157,11 @@ def test_port_imports_no_jax():
         "import hebbax_torch.data.nrrd_io, hebbax_torch.models.unet3d\n"
         "import hebbax_torch.ops.morphology, hebbax_torch.ops.distance\n"
         "import hebbax_torch.cli.train_semi_3d, hebbax_torch.models.urpc3d\n"
+        "import hebbax_torch.cli.pretrain_unsup_3d, hebbax_torch.models.snn\n"
+        "import hebbax_torch.cli.train_snn_sup_2d\n"
+        "import hebbax_torch.cli.test_snn_2d, hebbax_torch.models.raddino\n"
+        "import hebbax_torch.cli.train_semi_raddino_decoder_2d\n"
+        "import hebbax_torch.cli.test_raddino_decoder_2d\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'hebbax'))\n"
