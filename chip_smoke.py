@@ -135,10 +135,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    224x224, batch 2, regime 20 (the encoder frozen and unchanged), then
    ``test_raddino_decoder_2d``; one ``sweeps_tail_path`` line carries
    (r)-(v);
-10. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
-   urpc_pretrain, cct_pretrain and the paths of 6, 7, 8 and 9), the
-   card's name and power limit, and last ``{"ok": true, "device":
-   {...}}``.
+10. ``--dtype bfloat16`` and the run flags: (w) the bf16 2D main path:
+   at batch 2, 32x32 an eval forward of bf16 ``unet`` on the card
+   against the CPU (within 3e-2 of max(1, max|output|): cuDNN and oneDNN
+   round bf16 convolutions apart) and against the card's float32 forward
+   (must differ by > 1e-4); ``pretrain_hebbian_unsup_2d --dtype
+   bfloat16`` with (a)'s flags (4 steps, K1 22 launches per step, every
+   HConv's output bf16, parameters and statistics float32), then K1 at
+   the 22 sites of a bf16 training forward on its float32 copies of the
+   bf16 x and y against its plain version (TOL of max|delta|, two
+   launches equal to the bit); ``train_sup_2d --dtype bfloat16`` from
+   its snapshot and ``test_2d``; steady and profiled steps and peak
+   memory; (x) the bf16 3D bootstrap: the same card-vs-CPU check on
+   full-width ``unet3d`` at batch 1, 32^3, then (k) and (l) at ``--dtype
+   bfloat16`` (no K1 launch, every HConv's output bf16), timed, profiled,
+   peak memory; (y)
+   ``train_sup_2d --resume 1 --device_augment 1`` for 1 epoch, then for 2
+   with ``--profile_dir``: the second run trains epoch 2 alone, the trace
+   is written, every augmented batch lies on the card; one
+   ``bf16_flags_path`` line carries (w)-(y);
+11. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
+   urpc_pretrain, cct_pretrain and the paths of 6 to 10), the card's
+   name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
 and writes only under ``build/`` beside this file.
@@ -537,6 +555,7 @@ def phase_main_path(items, device="0"):
         "-n", "unet", "--exclude", "out_conv", "--hebb_mode", "swta_t",
         "--hebb_inv_temp", str(int(K_TEMP)), "--optimizer", "adam",
         "-l", "1e-6", "--debug", ""])
+    reset_peak(on)
     trainer = pretrain.build(args, make_loaders(items, args, 100))
     watch = "encoder.in_conv.conv2.weight"
     w0 = trainer.state.model.state_dict()[watch].detach().clone()
@@ -566,12 +585,14 @@ def phase_main_path(items, device="0"):
     profiled = {"a": profile_steps(trainer, raw_step,
                                    float(np.median(steady["a"])))}
     log("(a) profile " + json.dumps(profiled["a"]))
+    peaks = {"a": peak_gib(on)}
 
     # (b) fine-tuning from (a)'s snapshot
     args = train_sup_2d.add_args(common.base_parser_2d()).parse_args(
         base + ["--load_hebbian_weights",
                 os.path.join(run_a, "checkpoints", "last.ckpt"),
                 "--regime", "50", "--debug", ""])
+    reset_peak(on)
     trainer = train_sup_2d.build(args, make_loaders(items, args, 50))
     times_b = []
     raw_step = trainer.train_step
@@ -591,6 +612,7 @@ def phase_main_path(items, device="0"):
     profiled["b"] = profile_steps(trainer, raw_step,
                                   float(np.median(steady["b"])))
     log("(b) profile " + json.dumps(profiled["b"]))
+    peaks["b"] = peak_gib(on)
 
     # (c) test on (b)'s best snapshot
     args = test_2d.build_parser().parse_args(
@@ -616,7 +638,7 @@ def phase_main_path(items, device="0"):
     log("main_path " + json.dumps({
         "launches": launches, "steps": {"a": steps_a, "b": len(times_b)},
         "step_ms": {"a": times_a, "b": times_b},
-        "steady_step_ms": summary(steady),
+        "steady_step_ms": summary(steady), "peak_gib": peaks,
         "test": metrics}))
     return launches, run_a
 
@@ -1209,11 +1231,12 @@ def cli_base_3d(device, data_root, net=None):
 
 def pretrain_3d(data_root, device, net, watch, heads, tag, extra=()):
     """pretrain_hebbian_unsup_3d of ``net`` with the sweep's flags: no K1
-    launch, finite losses, the ``watch`` Hebbian kernels unchanged in
-    epoch 0 (lr 0) and changed in epoch 1, every ``heads`` weight trained,
-    last.ckpt; then steady and profiled steps."""
+    launch, every HConv's output in the run's ``--dtype``, finite losses,
+    the ``watch`` Hebbian kernels unchanged in epoch 0 (lr 0) and changed
+    in epoch 1, every ``heads`` weight trained, last.ckpt; then steady and
+    profiled steps and the peak memory."""
     import torch
-    from hebbax_torch.cli import common3d
+    from hebbax_torch.cli import common, common3d
     from hebbax_torch.cli import pretrain_hebbian_unsup_3d as pretrain
     from hebbax_torch.hebb import kernels
 
@@ -1222,8 +1245,10 @@ def pretrain_3d(data_root, device, net, watch, heads, tag, extra=()):
         cli_base_3d(device, data_root, net) + list(extra) + [
             "--hebb_mode", "swta_t", "--hebb_inv_temp", str(int(K_TEMP)),
             "--exclude", *EXCLUDE_3D, "--optimizer", "adam", "-l", "1e-6"])
+    reset_peak(on)
     trainer = pretrain.build(args)
     model = trainer.state.model
+    dtypes, hooks = conv_dtypes(model)
     sd0 = model.state_dict()
     w0 = {n: sd0[n].detach().clone() for n in watch}
     heads0 = {n: sd0[n].detach().clone() for n in heads}
@@ -1244,6 +1269,11 @@ def pretrain_3d(data_root, device, net, watch, heads, tag, extra=()):
     kernels.SWTA_DELTA.launches = 0
     trainer.run()
     launches = kernels.SWTA_DELTA.launches
+    for h in hooks:
+        h.remove()
+    want = common.model_dtype(args) or torch.float32
+    check(dtypes and set(dtypes) == {want},
+          f"{tag} HConv outputs {set(dtypes)}, not {want}")
     per_epoch = len(trainer.loaders["train"])
     check(len(times) == 2 * per_epoch, f"{tag} ran {len(times)} steps")
     check(launches == 0, f"{tag} launched K1 {launches} times")
@@ -1267,6 +1297,8 @@ def pretrain_3d(data_root, device, net, watch, heads, tag, extra=()):
     steady = steady_step_ms(trainer, raw_step)
     profiled = profile_steps(trainer, raw_step, float(np.median(steady)))
     log(f"{tag} profile " + json.dumps(profiled))
+    log(f"{tag} peak memory {peak_gib(on)} GiB (torch.cuda."
+        f"max_memory_allocated, the run and its timed steps)")
     return launches, snap, len(times), times, steady, profiled
 
 
@@ -1278,13 +1310,14 @@ def phase_3d_pretrain(data_root, device="0"):
                         "decoder.upconv1.weight"), ("conv.weight",), "(k)")
 
 
-def phase_3d_finetune(data_root, snap, device="0"):
+def phase_3d_finetune(data_root, snap, device="0", extra=(), tag="(l)"):
     """(l) train_sup_3d --load_hebbian_weights at regime 50 with the base
-    parser's SGD lr 0.1: the trunk equal to the snapshot before the first
-    step, conv re-initialised, no K1 launch, finite losses, best_JI.ckpt;
-    then steady and profiled steps."""
+    parser's SGD lr 0.1 (and the ``extra`` flags): the trunk equal to the
+    snapshot before the first step, conv re-initialised, no K1 launch,
+    every HConv's output in the run's ``--dtype``, finite losses,
+    best_JI.ckpt; then steady and profiled steps and the peak memory."""
     import torch
-    from hebbax_torch.cli import common3d
+    from hebbax_torch.cli import common, common3d
     from hebbax_torch.cli import train_sup_3d
     from hebbax_torch.hebb import kernels
     from hebbax_torch.hebb.layers import transposed_paths
@@ -1292,37 +1325,46 @@ def phase_3d_finetune(data_root, snap, device="0"):
 
     on = "cpu" if device == "cpu" else "cuda"
     args = train_sup_3d.add_args(common3d.base_parser_3d()).parse_args(
-        cli_base_3d(device, data_root) + [
+        cli_base_3d(device, data_root) + list(extra) + [
             "--load_hebbian_weights", snap, "--hebb_inv_temp",
             str(int(K_TEMP)), "--regime", "50"])
+    reset_peak(on)
     trainer = train_sup_3d.build(args)
     model = trainer.state.model
+    dtypes, hooks = conv_dtypes(model)
     loaded, _ = load_state_dict(snap, transposed_paths(model))
     sd = model.state_dict()
     differ = [n for n, t in sd.items() if not n.startswith("conv.")
               and not torch.equal(t.cpu(), loaded[n])]
-    check(not differ, f"(l) the trunk differs from the snapshot: "
+    check(not differ, f"{tag} the trunk differs from the snapshot: "
                       f"{differ[:5]}")
     check(not torch.equal(sd["conv.weight"].cpu(), loaded["conv.weight"]),
-          "(l) conv was not re-initialised")
+          f"{tag} conv was not re-initialised")
     times = []
     raw_step = trainer.train_step
     trainer.train_step = timed_step(raw_step, times)
     kernels.SWTA_DELTA.launches = 0
     trainer.run()
     launches = kernels.SWTA_DELTA.launches
-    check(launches == 0, f"(l) launched K1 {launches} times")
-    check(all_on(model, on), f"(l) a model tensor is off {on}")
+    for h in hooks:
+        h.remove()
+    want = common.model_dtype(args) or torch.float32
+    check(dtypes and set(dtypes) == {want},
+          f"{tag} HConv outputs {set(dtypes)}, not {want}")
+    check(launches == 0, f"{tag} launched K1 {launches} times")
+    check(all_on(model, on), f"{tag} a model tensor is off {on}")
     losses, ok = finite_losses(trainer)
-    check(ok, f"(l) losses {losses}")
+    check(ok, f"{tag} losses {losses}")
     check(os.path.exists(os.path.join(trainer.paths.checkpoints,
                                       "best_JI.ckpt")),
-          "(l) wrote no best_JI.ckpt")
-    log(f"(l) sup_3d: {len(times)} steps, K1 launches {launches}, step ms "
+          f"{tag} wrote no best_JI.ckpt")
+    log(f"{tag} sup_3d: {len(times)} steps, K1 launches {launches}, step ms "
         f"{[round(t, 3) for t in times]}, losses {losses}")
     steady = steady_step_ms(trainer, raw_step)
     profiled = profile_steps(trainer, raw_step, float(np.median(steady)))
-    log("(l) profile " + json.dumps(profiled))
+    log(f"{tag} profile " + json.dumps(profiled))
+    log(f"{tag} peak memory {peak_gib(on)} GiB (torch.cuda."
+        f"max_memory_allocated, the run and its timed steps)")
     return launches, trainer.paths.run, len(times), times, steady, profiled
 
 
@@ -2018,6 +2060,327 @@ def phase_sweeps_tail(card, items, data_root, device="0"):
     return launches, record
 
 
+BF16_ROOT = os.path.join(RUN_DIR, "bf16")
+BF16_TOL = 3e-2     # card vs CPU at bf16, of max(1, max|output|)
+
+
+def peak_gib(on):
+    """Peak ``torch.cuda.max_memory_allocated`` since the last
+    :func:`reset_peak`, in GiB (None on the CPU)."""
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30 if on == "cuda" \
+        else None
+
+
+def bf16_argv(argv):
+    """A CLI argv at ``--dtype bfloat16`` whose runs land under
+    ``build/chip_smoke/bf16`` (apart from the float32 paths' runs)."""
+    out = list(argv)
+    out[out.index("--path_root_exp") + 1] = BF16_ROOT
+    return out + ["--dtype", "bfloat16"]
+
+
+def bf16_reference(name, make, x, device):
+    """An eval forward of the bf16 network ``make(dtype, device)`` on the
+    card against the same weights at bf16 on the CPU (within BF16_TOL of
+    max(1, max|output|): cuDNN and oneDNN round bf16 convolutions apart)
+    and against the card's own float32 forward (must differ by > 1e-4)."""
+    import torch
+    gpu, cpu = make(torch.bfloat16, device), make(torch.bfloat16, "cpu")
+    f32 = make(None, device)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    f32.load_state_dict(gpu.state_dict())
+    outs = []
+    for m, dev in ((gpu, device), (cpu, "cpu"), (f32, device)):
+        m.eval()
+        with torch.no_grad():
+            outs.append(m(x.to(dev)).float().cpu())
+    scale = max(1.0, float(outs[1].abs().max()))
+    err = float((outs[0] - outs[1]).abs().max()) / scale
+    cast = float((outs[0] - outs[2]).abs().max())
+    check(np.isfinite(err) and err <= BF16_TOL,
+          f"{name} bf16 card vs CPU differ by {err} of scale")
+    check(cast > 1e-4, f"{name} bf16 forward equals the float32 one "
+                       f"({cast})")
+    log(f"bf16 small-input reference {name}: card vs CPU {err:.3e} of "
+        f"scale, bf16 vs float32 on the card {cast:.3e}")
+    del gpu, cpu, f32
+    release()
+    return {"card_vs_cpu": err, "bf16_vs_f32": cast}
+
+
+def conv_dtypes(model):
+    """Forward hooks recording the output dtype of every HConv; returns
+    (the list they fill, their handles)."""
+    from hebbax_torch.hebb.layers import HConv
+    seen, hooks = [], []
+    for m in model.modules():
+        if isinstance(m, HConv):
+            hooks.append(m.register_forward_hook(
+                lambda mod, i, o: seen.append(o.dtype)))
+    return seen, hooks
+
+
+def bf16_sites(model, images):
+    """The float32 copies K1 takes at each Hebbian site of a bf16
+    training forward: the raw weight, the bf16-cast input, the bf16
+    output."""
+    import torch
+    sites = []
+    for name, w, x, y, pad in capture_sites(model, images):
+        sites.append((name, w, x.to(torch.bfloat16).float().contiguous(),
+                      y.float().contiguous(), pad, y.dtype))
+    return sites
+
+
+def phase_bf16_2d(items, device="0"):
+    """(w) The bf16 2D main path: card-vs-CPU bf16 forward of ``unet``;
+    ``pretrain_hebbian_unsup_2d --dtype bfloat16`` as (a) (22 launches
+    per step, every HConv computing in bf16), K1 against its plain version
+    on a training forward's float32 copies of the bf16 x and y (TOL of
+    max|delta|, two launches equal to the bit); then ``train_sup_2d
+    --dtype bfloat16`` from its snapshot and ``test_2d``, each timed and
+    profiled like (a) and (b), with its peak memory."""
+    import torch
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import pretrain_hebbian_unsup_2d as pretrain
+    from hebbax_torch.cli import test_2d
+    from hebbax_torch.cli import train_sup_2d
+    from hebbax_torch.hebb import kernels, rules
+    from hebbax_torch.hebb.spec import HebbSpec
+    from hebbax_torch.models import get_network
+    from hebbax_torch.utils.seeding import make_generator
+
+    on = "cpu" if device == "cpu" else "cuda"
+    card = torch.device("cuda", 0) if on == "cuda" else torch.device("cpu")
+
+    def make(dtype, dev):
+        return get_network("unet", 3, 2, device=dev, dtype=dtype,
+                           generator=make_generator(3))
+
+    ref = bf16_reference("unet", make, torch.from_numpy(
+        np.random.default_rng(7).standard_normal(
+            (2, 3, 32, 32)).astype(np.float32)), card)
+    launches, record = {}, {"reference": ref}
+
+    # (w) pretraining
+    args = pretrain.add_args(common.base_parser_2d()).parse_args(bf16_argv(
+        cli_base(device) + [
+            "-n", "unet", "--exclude", "out_conv", "--hebb_mode", "swta_t",
+            "--hebb_inv_temp", str(int(K_TEMP)), "--optimizer", "adam",
+            "-l", "1e-6", "--debug", ""]))
+    reset_peak(on)
+    trainer = pretrain.build(args, make_loaders(items, args, 100))
+    model = trainer.state.model
+    dtypes, hooks = conv_dtypes(model)
+    times = []
+    raw_step = trainer.train_step
+    trainer.train_step = timed_step(raw_step, times)
+    kernels.SWTA_DELTA.launches = 0
+    trainer.run()
+    launches["bf16_pretrain"] = kernels.SWTA_DELTA.launches
+    for h in hooks:
+        h.remove()
+    check(len(times) == 4, f"(w) pretrain ran {len(times)} steps")
+    check(launches["bf16_pretrain"] == 22 * len(times),
+          f"(w) launched K1 {launches['bf16_pretrain']} times, expected "
+          f"22 x {len(times)}")
+    check(dtypes and all(d == torch.bfloat16 for d in dtypes),
+          f"(w) an HConv ran in {set(dtypes)}")
+    check(all(t.dtype == torch.float32 for t in
+              list(model.parameters()) + list(model.buffers())),
+          "(w) a parameter or statistic left float32")
+    check(all_on(model, on), f"(w) a model tensor is off {on}")
+    losses, ok = finite_losses(trainer)
+    check(ok, f"(w) pretrain losses {losses}")
+    snap = os.path.join(trainer.paths.checkpoints, "last.ckpt")
+    log(f"(w) bf16 pretrain: {len(times)} steps, K1 launches "
+        f"{launches['bf16_pretrain']}, {len(dtypes)} HConv outputs all "
+        f"bfloat16, step ms {[round(t, 3) for t in times]}, losses "
+        f"{losses}")
+    steady = {"w_pretrain": steady_step_ms(trainer, raw_step)}
+    profiled = {"w_pretrain": profile_steps(
+        trainer, raw_step, float(np.median(steady["w_pretrain"])))}
+    peaks = {"w_pretrain": peak_gib(on)}
+    log("(w) pretrain profile " + json.dumps(profiled["w_pretrain"]))
+
+    # K1 on the bf16 path's float32 copies
+    batch = trainer.prep(next(iter(trainer.loaders["train"])))
+    rows = []
+    for name, w, x, y, pad, ydt in bf16_sites(model, batch["image"]):
+        check(ydt == torch.bfloat16, f"(w) {name} output is {ydt}")
+        plain = rules.swta_conv_delta(w, x, y, K_TEMP, pad)
+        got = kernels.SWTA_DELTA(w, x, y, K_TEMP, pad)
+        again = kernels.SWTA_DELTA(w, x, y, K_TEMP, pad)
+        if on == "cuda":
+            torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        scale = float(plain.abs().max())
+        check(np.isfinite(err) and err <= TOL * scale,
+              f"(w) {name}: K1 vs plain {err} > {TOL} * {scale}")
+        check(torch.equal(got, again),
+              f"(w) {name}: two launches on the same tensors differ")
+        rows.append({"site": name, "rel_err": err / scale})
+    check(len(rows) == 22, f"(w) {len(rows)} bf16 sites")
+    worst = max(r["rel_err"] for r in rows)
+    log(f"(w) K1 on the bf16 copies: 22 sites, worst error {worst:.3e} of "
+        f"max|delta|, repeats equal to the bit")
+    record["k1_bf16_worst_rel"] = worst
+    del trainer, model
+    release()
+
+    # (w) fine-tuning and test
+    args = train_sup_2d.add_args(common.base_parser_2d()).parse_args(
+        bf16_argv(cli_base(device) + [
+            "--load_hebbian_weights", snap, "--regime", "50",
+            "--debug", ""]))
+    reset_peak(on)
+    trainer = train_sup_2d.build(args, make_loaders(items, args, 50))
+    times_b = []
+    raw_step = trainer.train_step
+    trainer.train_step = timed_step(raw_step, times_b)
+    kernels.SWTA_DELTA.launches = 0
+    trainer.run()
+    launches["bf16_sup"] = kernels.SWTA_DELTA.launches
+    check(launches["bf16_sup"] == 0, "(w) fine-tuning launched K1")
+    losses, ok = finite_losses(trainer)
+    check(ok, f"(w) fine-tune losses {losses}")
+    run_b = trainer.paths.run
+    check(os.path.exists(os.path.join(run_b, "checkpoints", "best_JI.ckpt")),
+          "(w) fine-tuning wrote no best_JI.ckpt")
+    log(f"(w) bf16 fine-tune: {len(times_b)} steps, step ms "
+        f"{[round(t, 3) for t in times_b]}, losses {losses}")
+    steady["w_sup"] = steady_step_ms(trainer, raw_step)
+    profiled["w_sup"] = profile_steps(trainer, raw_step,
+                                      float(np.median(steady["w_sup"])))
+    peaks["w_sup"] = peak_gib(on)
+    log("(w) fine-tune profile " + json.dumps(profiled["w_sup"]))
+    del trainer
+    release()
+
+    from hebbax_torch.config.datasets import dataset_cfg, input_stats
+    from hebbax_torch.data import Loader
+    targs = test_2d.build_parser().parse_args(
+        ["--device", device, "--path_exp", run_b, "--hebbian_pretrain", "1",
+         "-b", str(BATCH), "--num_workers", "4"])
+    mean, std = input_stats(dataset_cfg("GlaS"), "image")
+    test_ds = array_dataset_class()(items["val"], mean, std, "test")
+    kernels.SWTA_DELTA.launches = 0
+    metrics = test_2d.run_test(targs, Loader(test_ds, BATCH, num_workers=4))
+    launches["bf16_test"] = kernels.SWTA_DELTA.launches
+    check(metrics is not None and all(np.isfinite(v)
+                                      for v in metrics.values())
+          and 0.0 <= metrics["segm/dice"] <= 1.0,
+          f"(w) test metrics {metrics}")
+    log(f"(w) test of the bf16 run: Dice {metrics['segm/dice']:.4f} "
+        f"Jaccard {metrics['segm/jaccard']:.4f}")
+    record.update(launches=dict(launches), steady_step_ms=summary(steady),
+                  profile=profile_summary(profiled), peak_gib=peaks,
+                  test=metrics)
+    return launches, record
+
+
+def phase_bf16_3d(data_root, device="0"):
+    """(x) The bf16 3D bootstrap: card-vs-CPU bf16 eval forward of
+    full-width ``unet3d`` at batch 1, 32^3; (k) and (l) at ``--dtype
+    bfloat16`` (the steps are (k)'s and (l)'s), no K1 launch, every HConv
+    in bf16, steady and profiled steps and peak memory."""
+    import torch
+    from hebbax_torch.models import get_network
+    from hebbax_torch.utils.seeding import make_generator
+
+    on = "cpu" if device == "cpu" else "cuda"
+    card = torch.device("cuda", 0) if on == "cuda" else torch.device("cpu")
+
+    def make(dtype, dev):
+        return get_network(NET_3D, 1, 2, device=dev, dtype=dtype,
+                           generator=make_generator(3))
+
+    ref = bf16_reference(NET_3D, make, torch.from_numpy(
+        np.random.default_rng(11).standard_normal(
+            (1, 1, 32, 32, 32)).astype(np.float32)), card)
+    root_args = ["--dtype", "bfloat16"]
+    reset_peak(on)
+    l_k, snap, steps_k, times_k, steady_k, prof_k = pretrain_3d(
+        data_root, device, NET_3D, ("encoder.encoder1.conv1.weight",
+                                    "decoder.upconv1.weight"),
+        ("conv.weight",), "(x)", extra=root_args
+        + ["--path_root_exp", BF16_ROOT])
+    peak_k = peak_gib(on)
+    reset_peak(on)
+    l_l, run, steps_l, times_l, steady_l, prof_l = phase_3d_finetune(
+        data_root, snap, device, extra=root_args
+        + ["--path_root_exp", BF16_ROOT], tag="(x) fine-tune")
+    peak_l = peak_gib(on)
+    launches = {"bf16_pretrain_3d": l_k, "bf16_sup_3d": l_l}
+    log(f"(x) peak memory: pretrain {peak_k} GiB, fine-tune {peak_l} GiB")
+    return launches, {
+        "reference": ref, "launches": launches,
+        "steps": {"x_pretrain": steps_k, "x_sup": steps_l},
+        "steady_step_ms": summary({"x_pretrain": steady_k,
+                                   "x_sup": steady_l}),
+        "profile": profile_summary({"x_pretrain": prof_k,
+                                    "x_sup": prof_l}),
+        "peak_gib": {"x_pretrain": peak_k, "x_sup": peak_l}}
+
+
+def phase_flags(items, device="0"):
+    """(y) The run flags on the card: ``train_sup_2d --resume 1
+    --device_augment 1`` for 1 epoch, then for 2 with ``--profile_dir``:
+    the second run trains only epoch 2 (its log holds epoch 2 alone), the
+    profile of that epoch is written, and every augmented batch lay on
+    the card."""
+    import torch
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import train_sup_2d
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.ops import augment_device
+
+    on = "cpu" if device == "cpu" else "cuda"
+    prof_dir = os.path.join(RUN_DIR, "flags_profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    devices = []
+    orig = augment_device.augment_batch
+
+    def watched(generator, images, masks=None):
+        devices.append(images.device.type)
+        return orig(generator, images, masks)
+
+    augment_device.augment_batch = watched
+    kernels.SWTA_DELTA.launches = 0
+    try:
+        runs = []
+        for epochs, extra in ((1, []), (2, ["--profile_dir", prof_dir])):
+            argv = cli_base(device) + ["-n", "unet", "--regime", "100",
+                                       "--resume", "1", "--device_augment",
+                                       "1", "--debug", ""] + extra
+            argv[argv.index("-e") + 1] = str(epochs)
+            argv[argv.index("--path_root_exp") + 1] = os.path.join(
+                RUN_DIR, "flags")
+            args = train_sup_2d.add_args(
+                common.base_parser_2d()).parse_args(argv)
+            trainer = train_sup_2d.build(args, make_loaders(items, args,
+                                                            100))
+            check(trainer.loaders["train"].dataset.host_augment is False,
+                  "(y) --device_augment left host augmentation on")
+            trainer.run()
+            runs.append([r["epoch"] for r in trainer.train_log.rows])
+    finally:
+        augment_device.augment_batch = orig
+    launches = kernels.SWTA_DELTA.launches
+    check(launches == 0, f"(y) launched K1 {launches} times")
+    check(runs == [[1], [2]], f"(y) the resumed run trained epochs {runs}")
+    traces = [f for f in os.listdir(prof_dir)
+              if os.path.getsize(os.path.join(prof_dir, f)) > 0]
+    check(bool(traces), "(y) --profile_dir wrote no trace")
+    check(devices and set(devices) == {on},
+          f"(y) augmented batches lay on {set(devices)}")
+    log(f"(y) flags: resume trained epochs {runs}, profile {traces}, "
+        f"{len(devices)} batches augmented on {on}")
+    return {"flags": launches}, {"epochs": runs, "traces": traces,
+                                 "augmented_batches": len(devices)}
+
+
 def profile_summary(profiled):
     return {k: {"device_ms": v["device_ms"], "busy_share": v["busy_share"],
                 "groups_ms": v["groups_ms"], "top_ms": v["top_ms"][:3]}
@@ -2108,6 +2471,15 @@ def main():
     log("sweeps_tail_path " + json.dumps(record_9))
     lap(9)
 
+    l_w, record_w = phase_bf16_2d(items)
+    l_x, record_x = phase_bf16_3d(data_root)
+    l_y, record_y = phase_flags(items)
+    l_10 = {**l_w, **l_x, **l_y}
+    launches.update(l_10)
+    log("bf16_flags_path " + json.dumps({"w": record_w, "x": record_x,
+                                         "y": record_y}))
+    lap(10)
+
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -2123,7 +2495,7 @@ def main():
             "a", "urpc_pretrain", "cct_pretrain", "vae_pretrain",
             "superpix_pretrain", "superdiff_pretrain", "em_vae",
             "em_superpix", "test_em_vae", "test_em_superpix",
-            "pretrain_3d", "sup_3d", "test_3d", *l_8, *l_9)},
+            "pretrain_3d", "sup_3d", "test_3d", *l_8, *l_9, *l_10)},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],

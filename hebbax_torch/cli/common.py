@@ -52,27 +52,37 @@ def base_parser_2d(defaults=None):
     p.add_argument("--dp_devices", default=1, type=int,
                    help="data-parallel devices (only 1 is ported)")
     p.add_argument("--profile_dir", default=None, type=str,
-                   help="not ported yet")
+                   help="trace epoch 1 with torch.profiler into this dir")
     p.add_argument("--dtype", default="float32", type=str,
-                   help="model compute dtype: float32 (bfloat16 is not "
-                        "ported yet)")
-    p.add_argument("--resume", default=False, help="not ported yet")
-    p.add_argument("--device_augment", default=False, help="not ported yet")
+                   help="model compute dtype: float32 | bfloat16 (params "
+                        "stay f32)")
+    p.add_argument("--resume", default=False,
+                   help="write/consume <checkpoints>/resume.ckpt (model, "
+                        "optimizer, step, epoch)")
+    p.add_argument("--device_augment", default=False,
+                   help="run the train augmentation on the batch's device "
+                        "(train_sup_2d / train_semi_2d)")
     if defaults:
         p.set_defaults(**defaults)
     return p
 
 
 def check_ported(args):
-    """Raise NotImplementedError for flags whose path is not ported."""
-    if getattr(args, "dtype", "float32") not in ("float32", "f32"):
-        raise NotImplementedError(
-            f"--dtype {args.dtype} is not ported yet (float32 only)")
+    """Raise NotImplementedError for flags whose path is not ported: only
+    data parallelism (``--dp_devices != 1``) is left."""
     if getattr(args, "dp_devices", 1) != 1:
         raise NotImplementedError("--dp_devices != 1 is not ported yet")
-    for flag in ("profile_dir", "resume", "device_augment"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(f"--{flag} is not ported yet")
+
+
+def model_dtype(args):
+    """--dtype as the networks' compute dtype: None (float32) or
+    ``torch.bfloat16``."""
+    name = getattr(args, "dtype", "float32")
+    if name in (None, "float32", "f32"):
+        return None
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    raise ValueError(f"unsupported dtype {name!r}")
 
 
 def resolve_device(spec):
@@ -129,15 +139,16 @@ def pretrain_base_network(name):
 
 def new_model(args, cfg, device, hebb=None):
     """The network named by args, initialised from args.seed (on the CPU,
-    so a seed gives the same weights on every device), on ``device``;
-    dropout draws from seed+1 and the network's own streams
+    so a seed gives the same weights on every device) by
+    ``--init_weights``, on ``device``, computing in ``--dtype``; dropout
+    draws from seed+1 and the network's own streams
     (:func:`stream_generators`) from theirs."""
     return get_network(
         args.network, cfg["IN_CHANNELS"], cfg["NUM_CLASSES"],
         init_type=args.init_weights, hebb=hebb, device=device,
         generator=make_generator(args.seed),
         dropout_generator=make_generator(args.seed + 1, device),
-        **stream_generators(args.seed, device))
+        dtype=model_dtype(args), **stream_generators(args.seed, device))
 
 
 def stream_generators(seed, device):
@@ -214,3 +225,54 @@ def build_optimizer(args, params, steps_per_epoch):
     wd = 5 * 10 ** args.wd if args.optimizer == "sgd" else 0.0
     return make_optimizer(args.optimizer, params, momentum=args.momentum,
                           weight_decay=wd), schedule
+
+
+AUGMENT_SEED_OFFSET = 5     # the device augmentation's stream: seed+5
+
+
+def wrap_device_augment(train_step, generator):
+    """A supervised step ``(state, batch, *rest)`` that first augments the
+    batch's images and masks on their device
+    (:func:`hebbax_torch.ops.augment_device.augment_batch`)."""
+    from ..ops.augment_device import augment_batch
+
+    def wrapped(state, batch, *rest):
+        img, mask = augment_batch(generator, batch["image"], batch["mask"])
+        return train_step(state, dict(batch, image=img, mask=mask), *rest)
+
+    return wrapped
+
+
+def wrap_device_augment_semi(train_step, generator):
+    """A semi step ``(state, sup_batch, unsup_batch, *rest)`` that first
+    augments the labelled batch (images and masks) and the unlabelled one
+    (images), with separate draws."""
+    from ..ops.augment_device import augment_batch
+
+    def wrapped(state, sup_batch, unsup_batch, *rest):
+        img_s, mask_s = augment_batch(generator, sup_batch["image"],
+                                      sup_batch["mask"])
+        img_u, _ = augment_batch(generator, unsup_batch["image"])
+        return train_step(state, dict(sup_batch, image=img_s, mask=mask_s),
+                          dict(unsup_batch, image=img_u), *rest)
+
+    return wrapped
+
+
+def enable_device_augment(trainer, args):
+    """With ``--device_augment``, the train datasets give resized and
+    normalized items only and the step augments on the device, from a
+    CPU generator at seed+5 (hebbax's ``enable_device_augment``)."""
+    if not getattr(args, "device_augment", False):
+        return trainer
+    generator = make_generator(args.seed + AUGMENT_SEED_OFFSET)
+    if "train" in trainer.loaders:
+        trainer.loaders["train"].dataset.host_augment = False
+        trainer.train_step = wrap_device_augment(trainer.train_step,
+                                                 generator)
+    else:
+        trainer.loaders["train_sup"].dataset.host_augment = False
+        trainer.loaders["train_unsup"].dataset.host_augment = False
+        trainer.train_step = wrap_device_augment_semi(trainer.train_step,
+                                                      generator)
+    return trainer

@@ -4,8 +4,9 @@ fine-tune hand-off.
 
 As in 2D, ``--device`` takes ``0`` (``cuda:0``), another card index, or
 ``cpu``, and an entry point raises without CUDA unless ``cpu`` was asked
-for; ``--dtype bfloat16``, ``--dp_devices``, ``--resume`` and
-``--profile_dir`` raise (:func:`hebbax_torch.cli.common.check_ported`).
+for; ``--dtype bfloat16``, ``--resume`` and ``--profile_dir`` are
+hebbax's, ``--dp_devices`` other than 1 raises
+(:func:`hebbax_torch.cli.common.check_ported`).
 """
 
 import argparse
@@ -52,11 +53,13 @@ def base_parser_3d(defaults=None):
     p.add_argument("--dp_devices", default=1, type=int,
                    help="data-parallel devices (only 1 is ported)")
     p.add_argument("--profile_dir", default=None, type=str,
-                   help="not ported yet")
+                   help="trace epoch 1 with torch.profiler into this dir")
     p.add_argument("--dtype", default="float32", type=str,
-                   help="model compute dtype: float32 (bfloat16 is not "
-                        "ported yet)")
-    p.add_argument("--resume", default=False, help="not ported yet")
+                   help="model compute dtype: float32 | bfloat16 (params "
+                        "stay f32)")
+    p.add_argument("--resume", default=False,
+                   help="write/consume <checkpoints>/resume.ckpt (model, "
+                        "optimizer, step, epoch)")
     if defaults:
         p.set_defaults(**defaults)
     return p

@@ -168,7 +168,9 @@ def build(args, algo, loaders=None):
     model, hebb = common.build_model_2d(
         args, cfg, device, load_hebbian=args.load_hebbian_weights,
         load_weights=args.load_weights)
-    return make_trainer(args, algo, cfg, device, model, hebb, loaders, paths)
+    return common.enable_device_augment(
+        make_trainer(args, algo, cfg, device, model, hebb, loaders, paths),
+        args)
 
 
 def main(algo, argv=None, loaders=None):

@@ -57,11 +57,12 @@ def build(args, loaders=None):
     if hebb is not None:
         hebb_meta = {"hebb_params": hebb.to_dict(),
                      "layers_excluded": list(hebb.exclude)}
-    return SupTrainer(
+    trainer = SupTrainer(
         state=state, train_step=train_step, eval_step=eval_step,
         loaders=loaders, num_classes=cfg["NUM_CLASSES"], paths=paths,
         args=args, device=device, hebb_meta=hebb_meta,
         palette=cfg["PALETTE"])
+    return common.enable_device_augment(trainer, args)
 
 
 def main(argv=None, loaders=None):

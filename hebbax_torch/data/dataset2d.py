@@ -55,7 +55,11 @@ def _load_mask(path):
 
 class SegDataset2D:
     """Items are dicts with 'image' (H,W,C f32, normalized), 'mask'
-    (H,W int32, absent when sup=False) and 'id'."""
+    (H,W int32, absent when sup=False) and 'id'.  ``host_augment = False``
+    makes a train item resize + normalize only: the train augmentation
+    then runs on the device (:mod:`hebbax_torch.ops.augment_device`)."""
+
+    host_augment = True
 
     def __init__(self, data_dir: str, input1: str, mean, std,
                  split: str = "train", sup: bool = True,
@@ -89,7 +93,7 @@ class SegDataset2D:
 
     def get(self, index: int, rng: Optional[np.random.Generator] = None):
         img, mask = self._decoded(index)
-        if self.train:
+        if self.train and self.host_augment:
             rng = rng or np.random.default_rng()
             img, mask = augment2d.train_augment(rng, img, mask, self.size)
         else:

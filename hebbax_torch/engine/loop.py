@@ -5,10 +5,12 @@ evaluation with best-val-Jaccard snapshotting, and final last.ckpt +
 train_log.csv/val_log.csv artifacts (kernel layouts in the snapshot
 follow the model's module types).  Every scalar ``loss*`` entry a step
 returns besides ``loss`` is averaged over the epoch and logged as its own
-``train_log.csv`` column and ``train/<name>`` scalar.  Data parallelism is
-not ported yet.
+``train_log.csv`` column and ``train/<name>`` scalar.  ``--resume`` and
+``--profile_dir`` are hebbax's (:meth:`SupTrainer.run`).  Data parallelism
+is not ported yet.
 """
 
+import os
 import time
 
 import numpy as np
@@ -17,7 +19,8 @@ import torch
 from ..bridge import kernel_layout
 from ..ops.metrics import make_accumulator
 from ..utils import images as image_utils
-from ..utils.checkpoint import save_snapshot
+from ..utils.checkpoint import (load_train_state, save_snapshot,
+                                save_train_state)
 from ..utils.logging import BoxPrinter, MetricsLog, make_tb_writer
 
 
@@ -132,22 +135,62 @@ class SupTrainer:
             n_batches += 1
             acc.update(out["logits"], batch["mask"])
             if self.args.debug and self.palette is not None:
+                # softmax in the logits' dtype, as hebbax's
                 probs = torch.softmax(out["logits"], dim=1)[:, 1]
-                preds.append(probs.cpu().numpy())
+                preds.append(probs.float().cpu().numpy())
                 names.extend(ids or [])
         thr, ji, dc = acc.finalize()
         val_loss = float(total_loss) / max(n_batches, 1)
         return val_loss, (thr, ji, dc), preds, names
 
+    def _resume(self):
+        """With ``--resume``, restore ``<checkpoints>/resume.ckpt`` when it
+        exists; returns the epoch to start from."""
+        if not getattr(self.args, "resume", None):
+            return 0
+        path = os.path.join(self.paths.checkpoints, "resume.ckpt")
+        if not os.path.exists(path):
+            return 0
+        self.state, meta = load_train_state(self.state, path)
+        if meta.get("best_val"):
+            self.best_val = meta["best_val"]
+        self.printer.line(f"Resumed from epoch {meta['epoch'] + 1}")
+        return meta["epoch"] + 1
+
+    def _profiled_epoch(self, epoch, display):
+        """One train epoch under ``torch.profiler`` (CUDA activity when the
+        run is on the card), its trace exported into ``--profile_dir``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.device(self.device).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            out = self.train_epoch(epoch, display)
+            if torch.device(self.device).type == "cuda":
+                torch.cuda.synchronize(self.device)
+        os.makedirs(self.args.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.args.profile_dir, f"epoch{epoch}.pt.trace.json"))
+        return out
+
     def run(self):
+        """Train ``num_epochs`` epochs.  ``--resume`` restarts after the
+        epoch of ``resume.ckpt`` and rewrites it after every validated
+        epoch; a resumed run's loaders start at their epoch 0 shuffle, as
+        hebbax's do.  ``--profile_dir`` traces epoch 1 (past the first
+        epoch's warm-up) into that directory."""
         args = self.args
         since = time.time()
-        for epoch in range(args.num_epochs):
+        for epoch in range(self._resume(), args.num_epochs):
             display = (epoch + 1) % args.display_iter == 0
             validate = ((epoch + 1) % args.validate_iter == 0
                         or epoch + 1 == args.num_epochs)
             epoch_t0 = time.time()
-            train_loss, acc = self.train_epoch(epoch, display)
+            if getattr(args, "profile_dir", None) and epoch == 1:
+                train_loss, acc = self._profiled_epoch(epoch, display)
+            else:
+                train_loss, acc = self.train_epoch(epoch, display)
             epoch_seconds = time.time() - epoch_t0
 
             if display:
@@ -194,6 +237,9 @@ class SupTrainer:
                         image_utils.save_preds(
                             np.concatenate(preds), ev[0], names,
                             self.paths.val_seg_preds, self.palette)
+                if getattr(args, "resume", None):
+                    save_train_state(self.state, self.paths.checkpoints,
+                                     epoch, self.best_val)
 
         self._save_last(self.best_val[0])
         self.train_log.flush()

@@ -62,7 +62,9 @@ def make_semi_step(model, network: str, criterion, unsup_fn: Callable,
         model.train()
         out_u = model(unsup_batch["image"])
         out_s = model(sup_batch["image"])
-        loss_u = unsup_fn(out_u, unsup_batch) * unsup_weight
+        # hebbax's weight is a float32 array: a bfloat16 objective is
+        # promoted before it is scaled
+        loss_u = unsup_fn(out_u, unsup_batch).float() * unsup_weight
         loss_s = sup_fn(out_s, sup_batch)
         loss = loss_s + loss_u
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -227,8 +229,9 @@ def make_uamt_step(model, teacher, network: str, criterion,
             uncertainty = -torch.sum(
                 mean_probs * torch.log(mean_probs + 1e-6), dim=1,
                 keepdim=True)
-            unc_mask = (uncertainty < uamt_threshold(
-                epoch, num_epochs)).to(img_u.dtype)
+            # compared in float32, as hebbax's float32 threshold is
+            unc_mask = (uncertainty.float() < uamt_threshold(
+                epoch, num_epochs)).to(torch.float32)
 
         model.train()
         logits_u = primary_logits(network, model(img_u))

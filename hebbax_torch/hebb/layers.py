@@ -14,6 +14,13 @@ layer's path is not excluded, the layer
   * keeps the parameters of the plain conv, so snapshots load across the
     pretrain -> fine-tune hand-off.
 
+``compute_dtype`` (None: float32, the bias added inside the conv) is
+flax's ``dtype=``: the float32 weight is normalized first, then weight
+and input are cast to the dtype and convolved, and the bias, cast too, is
+added after the conv in the dtype (two roundings, as hebbax's ``HConv``
+does).  The delta takes float32 copies of the raw weight, of the CAST
+input and of the output (hebbax's ``delta_compute_dtype``, float32).
+
 Weights are torch's: ``(O, I, *k)`` for a conv, padding applied natively by
 the conv; ``(I, O, *k)`` for a transpose conv, which never pads.  hebbax's
 transpose orientation is torch's, so no kernel flip is involved.
@@ -32,15 +39,36 @@ from .spec import HebbSpec, spec_if_active
 _CONV = {2: F.conv2d, 3: F.conv3d}
 _CONV_TRANSPOSE = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
+INIT_TYPES = ("kaiming", "xavier", "normal", "orthogonal")
+INIT_GAIN = 0.02
 
-def kaiming_normal_(weight, generator=None):
-    """torch fan_in convention: std = sqrt(2 / (dim1 * prod(k))), i.e.
-    I * prod(k) for a conv weight (O, I, *k) and O * prod(k) for a
-    transpose-conv weight (I, O, *k)."""
-    fan_in = weight.shape[1] * math.prod(weight.shape[2:])
+
+def init_weight_(weight, init_type="kaiming", generator=None,
+                 gain=INIT_GAIN):
+    """hebbax's ``torch_kernel_init`` on a torch-layout weight, drawn from
+    ``generator``, with torch's fans: fan_in = dim1 * prod(k) and fan_out
+    = dim0 * prod(k), so a transpose conv's (I, O, *k) weight has fan_in
+    O * prod(k).  kaiming N(0, 2 / fan_in); xavier N(0, gain^2 * 2 /
+    (fan_in + fan_out)); normal N(0, gain^2); orthogonal a semi-orthogonal
+    (dim0, prod(rest)) matrix scaled by gain: rows O for a conv, I for a
+    transpose conv."""
+    rf = math.prod(weight.shape[2:])
+    fan_in, fan_out = weight.shape[1] * rf, weight.shape[0] * rf
     with torch.no_grad():
-        weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
-    return weight
+        if init_type == "orthogonal":
+            flat = torch.empty(weight.shape[0], weight[0].numel())
+            nn.init.orthogonal_(flat, gain=gain, generator=generator)
+            return weight.copy_(flat.reshape(weight.shape))
+        if init_type == "kaiming":
+            std = math.sqrt(2.0 / fan_in)
+        elif init_type == "xavier":
+            std = gain * math.sqrt(2.0 / (fan_in + fan_out))
+        elif init_type == "normal":
+            std = gain
+        else:
+            raise NotImplementedError(
+                f"init {init_type!r}; one of {INIT_TYPES}")
+        return weight.normal_(0.0, std, generator=generator)
 
 
 def _tuple(v, nd):
@@ -57,9 +85,9 @@ class HConv(nn.Module):
                  padding=0, init_type: str = "kaiming", device=None,
                  generator=None):
         super().__init__()
-        if init_type != "kaiming":
+        if init_type not in INIT_TYPES:
             raise NotImplementedError(
-                f"init {init_type!r} is not ported yet (kaiming only)")
+                f"init {init_type!r}; one of {INIT_TYPES}")
         nd = len(kernel_size) if isinstance(kernel_size,
                                             (tuple, list)) else 2
         self.nd = nd
@@ -67,30 +95,38 @@ class HConv(nn.Module):
         self.stride = (1,) * nd
         self.spec = None          # set by bind_paths once the path is known
         self.delta = None
+        self.compute_dtype = None   # set by set_compute_dtype
         io = (in_channels, features) if self.transpose else (features,
                                                              in_channels)
         self.weight = nn.Parameter(torch.empty(
             io + _tuple(kernel_size, nd), device=device))
         # generator on the CPU: init draws the same numbers on every device
         w = torch.empty(self.weight.shape)
-        kaiming_normal_(w, generator)
+        init_weight_(w, init_type, generator)
         with torch.no_grad():
             self.weight.copy_(w)
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
-    def _apply_conv(self, x, w):
-        return _CONV[self.nd](x, w, self.bias, padding=self.padding)
+    def _apply_conv(self, x, w, bias):
+        return _CONV[self.nd](x, w, bias, padding=self.padding)
 
     def forward(self, x):
         spec = self.spec
         w = self.weight
         if spec is not None and spec.w_nrm:
             w = rules.normalize(w, rules.weight_norm_dims(self.nd))
-        y = self._apply_conv(x, w)
+        dtype = self.compute_dtype
+        if dtype is None:
+            y = self._apply_conv(x, w, self.bias)
+        else:
+            x = x.to(dtype)
+            y = self._apply_conv(x, w.to(dtype), None) + self.bias.to(
+                dtype).view((-1,) + (1,) * self.nd)
         if spec is not None and self.training and spec.alpha != 0:
             with torch.no_grad():
                 d = rules.compute_delta(spec, self.weight.detach(),
-                                        x.detach(), y.detach(), self.padding,
+                                        x.detach().float(),
+                                        y.detach().float(), self.padding,
                                         self.transpose, self.stride)
             self.delta = d if self.delta is None else self.delta + d
         return y
@@ -109,8 +145,8 @@ class HConvTranspose(HConv):
                          device, generator)
         self.stride = _tuple(stride, self.nd)
 
-    def _apply_conv(self, x, w):
-        return _CONV_TRANSPOSE[self.nd](x, w, self.bias, stride=self.stride)
+    def _apply_conv(self, x, w, bias):
+        return _CONV_TRANSPOSE[self.nd](x, w, bias, stride=self.stride)
 
 
 def bind_paths(model: nn.Module, hebb: Optional[HebbSpec]):
@@ -120,6 +156,17 @@ def bind_paths(model: nn.Module, hebb: Optional[HebbSpec]):
     for name, m in model.named_modules():
         if isinstance(m, HConv):
             m.spec = spec_if_active(hebb, tuple(name.split(".")))
+    return model
+
+
+def set_compute_dtype(model: nn.Module, dtype):
+    """flax's ``dtype=`` on a whole network: every module of ``model``
+    with a ``compute_dtype`` (the HConvs and batch norms) computes in
+    ``dtype`` (None: float32).  Parameters and BN statistics stay
+    float32."""
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
     return model
 
 

@@ -13,6 +13,7 @@ hebbax's ``jax.random`` draws).
 
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -52,21 +53,55 @@ def max_pool(x):
     return (F.max_pool3d if x.dim() == 5 else F.max_pool2d)(x, 2)
 
 
+def _linear_interp_matrix(n_in, n_out):
+    """(n_out, n_in) float32 matrix of 1-D linear interpolation with
+    align_corners=True (hebbax's ``_linear_interp_matrix``)."""
+    m = torch.zeros((n_out, n_in), dtype=torch.float32)
+    if n_in == 1 or n_out == 1:
+        m[:, 0] = 1.0
+        return m
+    pos = np.arange(n_out) * (n_in - 1) / (n_out - 1)
+    lo = np.minimum(np.floor(pos).astype(np.int64), n_in - 2)
+    w = torch.from_numpy((pos - lo).astype(np.float32))
+    rows, lo = torch.arange(n_out), torch.from_numpy(lo)
+    m[rows, lo] = 1.0 - w
+    m[rows, lo + 1] = w
+    return m
+
+
 def resize_linear_align_corners(x, out_spatial):
     """Bilinear (4-D input) or trilinear (5-D) resize with
-    align_corners=True (torch Upsample parity)."""
+    align_corners=True (torch Upsample parity).  A float32 input takes
+    ``F.interpolate``; another dtype (bfloat16) resizes one axis at a time
+    as a matmul with the interpolation matrix cast to x's dtype, as hebbax
+    does, so the weights and every axis's result round to the dtype."""
     if tuple(x.shape[2:]) == tuple(out_spatial):
         return x
-    return F.interpolate(x, size=tuple(out_spatial),
-                         mode="trilinear" if x.dim() == 5 else "bilinear",
-                         align_corners=True)
+    if x.dtype == torch.float32:
+        return F.interpolate(x, size=tuple(out_spatial),
+                             mode="trilinear" if x.dim() == 5
+                             else "bilinear", align_corners=True)
+    for d, n_out in enumerate(out_spatial):
+        axis = 2 + d
+        n_in = x.shape[axis]
+        if n_in == n_out:
+            continue
+        m = _linear_interp_matrix(n_in, n_out).to(x.dtype).to(x.device)
+        x = torch.movedim(torch.matmul(torch.movedim(x, axis, -1), m.T),
+                          -1, axis)
+    return x
 
 
 def instance_norm(x, eps=1e-5):
     """torch InstanceNorm2d / 3d defaults: per sample and channel over the
-    spatial dims, biased variance, no affine, no running statistics."""
-    var, mean = torch.var_mean(x, dim=tuple(range(2, x.dim())),
-                               unbiased=False, keepdim=True)
+    spatial dims, biased variance, no affine, no running statistics.  As
+    ``jnp.mean`` / ``jnp.var`` do in hebbax's ``instance_norm``, a
+    bfloat16 input's mean and variance are reduced in float32 and rounded
+    to bfloat16, and the normalization runs in bfloat16."""
+    var, mean = torch.var_mean(
+        x.to(torch.promote_types(x.dtype, torch.float32)),
+        dim=tuple(range(2, x.dim())), unbiased=False, keepdim=True)
+    mean, var = mean.to(x.dtype), var.to(x.dtype)
     return (x - mean) * torch.rsqrt(var + eps)
 
 
@@ -182,12 +217,18 @@ class BatchNorm2d(nn.Module):
     the CPU from ``generator``.  A subclass may set ``gain_init = None``
     (scale ones), another ``eps``, or ``use_bias = False`` (a scale-only
     norm: flax's ``use_bias=False``, no ``bias`` entry).
+
+    As flax's (``force_float32_reductions``), the batch statistics and the
+    normalization are computed in float32 whatever x's dtype, and only
+    the result is cast: to ``compute_dtype`` when set (flax's ``dtype=``),
+    else to the promotion of x's dtype with float32.
     """
 
     eps = 1e-5
     momentum = 0.1
     gain_init = 0.02
     use_bias = True
+    compute_dtype = None
 
     def __init__(self, features: int, device=None, generator=None):
         super().__init__()
@@ -205,10 +246,14 @@ class BatchNorm2d(nn.Module):
                              torch.ones(features, device=device))
 
     def forward(self, x):
+        # float32 at least (a float64 input stays float64)
+        wide = torch.promote_types(x.dtype, torch.float32)
+        out_dtype = self.compute_dtype or wide
+        x = x.to(wide)
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0,
-                                self.eps)
+            y = F.batch_norm(x, self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(out_dtype)
         var, mean = torch.var_mean(x, dim=(0,) + tuple(range(2, x.dim())),
                                    unbiased=False)
         with torch.no_grad():
@@ -217,7 +262,8 @@ class BatchNorm2d(nn.Module):
         inv = torch.rsqrt(var + self.eps)
         view = (1, -1) + (1,) * (x.dim() - 2)
         y = (x - mean.view(view)) * (inv * self.weight).view(view)
-        return y if self.bias is None else y + self.bias.view(view)
+        y = y if self.bias is None else y + self.bias.view(view)
+        return y.to(out_dtype)
 
 
 class BatchNorm3d(BatchNorm2d):

@@ -27,7 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..hebb.layers import HConv, bind_paths
+from ..hebb.layers import HConv, bind_paths, set_compute_dtype
 from ..hebb.spec import HebbSpec
 from .common import lecun_normal_, max_pool
 from .unet2d import ConvBlockLeaky, UpBlock2D
@@ -103,7 +103,8 @@ class DDPMUNet(nn.Module):
 
     def __init__(self, in_channels: int, n_cls: int,
                  hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
-                 device=None, generator=None, dropout_generator=None):
+                 device=None, generator=None, dropout_generator=None,
+                 dtype=None):
         super().__init__()
         kw = dict(init_type=init_type, device=device, generator=generator)
         self.net = TimeUNet2D(in_channels + n_cls, in_channels,
@@ -113,6 +114,7 @@ class DDPMUNet(nn.Module):
         self.final_conv = HConv(n_cls, n_cls, kernel_size=3, padding=1, **kw)
         self.hebb = hebb
         bind_paths(self, hebb)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x, time=None, mode: str = "probe"):
         if mode == "probe":

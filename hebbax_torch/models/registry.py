@@ -37,12 +37,15 @@ _DTC_3D = dict(nd=3, outputs="dtc")
 
 def _vgg(cls):
     """SNNVGG / ANNVGG from the registry's keywords: no Hebbian conv, and
-    xavier init whatever ``init_type`` says (as in hebbax)."""
+    xavier init whatever ``init_type`` says (as in hebbax).  ANNVGG takes
+    ``dtype``; SNNVGG ignores it, as hebbax's does."""
     def factory(in_channels, n_cls, init_type=None, hebb=None, device=None,
-                generator=None, dropout_generator=None, **kw):
+                generator=None, dropout_generator=None, dtype=None, **kw):
         del init_type, dropout_generator
         if hebb is not None:
             raise ValueError(f"{cls.__name__} has no Hebbian conv")
+        if cls is ANNVGG:
+            kw["dtype"] = dtype
         return cls(in_channels, n_cls, device=device, generator=generator,
                    **kw)
     return factory
@@ -98,11 +101,13 @@ def get_network(name: str, in_channels: int, num_classes: int,
                 init_type: str = "kaiming", hebb: Optional[HebbSpec] = None,
                 device=None, generator=None, dropout_generator=None,
                 perturb_generator=None, latent_generator=None,
-                poisson_generator=None):
+                poisson_generator=None, dtype=None):
     """Build a model module on ``device``; ``perturb_generator`` goes to
     the networks that draw perturbations (the ``perturb`` rng),
     ``latent_generator`` to those that draw a latent (``latent``),
-    ``poisson_generator`` to those that draw spikes (``poisson``)."""
+    ``poisson_generator`` to those that draw spikes (``poisson``).
+    ``dtype`` (None: float32) is the compute dtype, flax's ``dtype=``:
+    parameters and BN statistics stay float32."""
     meta = network_meta(name)
     streams = {"perturb": perturb_generator, "latent": latent_generator,
                "poisson": poisson_generator}
@@ -111,7 +116,7 @@ def get_network(name: str, in_channels: int, num_classes: int,
     return factory(in_channels=in_channels, n_cls=num_classes,
                    init_type=init_type, hebb=hebb, device=device,
                    generator=generator, dropout_generator=dropout_generator,
-                   **kw)
+                   dtype=dtype, **kw)
 
 
 def primary_logits(name: str, outputs):

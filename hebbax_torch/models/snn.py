@@ -193,26 +193,33 @@ class ScaleBatchNorm2d(BatchNorm2d):
 
 
 class Conv2dNoBias(nn.Module):
-    """Bias-free conv, xavier-uniform (gain 2) from ``generator``."""
+    """Bias-free conv, xavier-uniform (gain 2) from ``generator``; with a
+    ``compute_dtype`` (flax ``nn.Conv(dtype=)``) input and weight are cast
+    to it and the conv runs in it."""
 
     def __init__(self, in_ch, out_ch, k, dilation=1, padding=0, device=None,
                  generator=None):
         super().__init__()
         self.dilation, self.padding = dilation, padding
+        self.compute_dtype = None
         self.weight = nn.Parameter(
             _xavier_gain2((out_ch, in_ch, k, k), generator).to(device))
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, padding=self.padding,
-                        dilation=self.dilation)
+        w = self.weight
+        if self.compute_dtype is not None:
+            x, w = x.to(self.compute_dtype), w.to(self.compute_dtype)
+        return F.conv2d(x, w, padding=self.padding, dilation=self.dilation)
 
 
 class ANNVGG(nn.Module):
     """The non-spiking twin: the same topology with one batch norm per
-    conv and ReLU; returns the (B, n_cls, H, W) logits."""
+    conv and ReLU; returns the (B, n_cls, H, W) logits.  ``dtype`` goes to
+    the convs only, as in hebbax, whose batch norms take none: they
+    return float32, and each conv casts its input again."""
 
     def __init__(self, in_channels: int, n_cls: int, device=None,
-                 generator=None):
+                 generator=None, dtype=None):
         super().__init__()
         self.sites = _sites(in_channels)
         for name, c_in, c, dil in self.sites:
@@ -223,6 +230,9 @@ class ANNVGG(nn.Module):
         for i, (_, _, c, _) in enumerate(self.sites[:-1]):
             setattr(self, f"feat_bn{i}", ScaleBatchNorm2d(c, device=device))
         self.cls_bn = ScaleBatchNorm2d(1024, device=device)
+        for m in self.modules():
+            if isinstance(m, Conv2dNoBias):
+                m.compute_dtype = dtype
 
     def forward(self, x):
         h, w = x.shape[2:]

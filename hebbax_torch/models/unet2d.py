@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..hebb.layers import HConv, bind_paths
+from ..hebb.layers import HConv, bind_paths, set_compute_dtype
 from ..hebb.spec import HebbSpec
 from ..ops.dropout import Dropout
 from .common import (CCT_PERTURB_KINDS, BatchNorm2d, cct_aux_outputs,
@@ -35,6 +35,15 @@ from .common import (CCT_PERTURB_KINDS, BatchNorm2d, cct_aux_outputs,
 
 FEATURES = (16, 32, 64, 128, 256)
 ENC_DROPOUT = (0.05, 0.1, 0.2, 0.3, 0.5)
+LEAKY_SLOPE = 0.01
+
+
+def leaky_relu(x):
+    """flax's ``leaky_relu``: the slope 0.01 is a weakly typed constant,
+    so it takes x's dtype before it multiplies (in bfloat16 the slope is
+    0.010009765625)."""
+    slope = float(torch.tensor(LEAKY_SLOPE, dtype=x.dtype))
+    return F.leaky_relu(x, slope)
 
 
 class ConvBlockLeaky(nn.Module):
@@ -54,9 +63,9 @@ class ConvBlockLeaky(nn.Module):
                                generator=generator)
 
     def forward(self, x):
-        x = F.leaky_relu(self.bn1(self.conv1(x)))
+        x = leaky_relu(self.bn1(self.conv1(x)))
         x = self.dropout(x)
-        return F.leaky_relu(self.bn2(self.conv2(x)))
+        return leaky_relu(self.bn2(self.conv2(x)))
 
 
 class ConvBlockReLU(nn.Module):
@@ -174,7 +183,8 @@ class UNet2D(nn.Module):
 
     def __init__(self, in_channels: int, n_cls: int,
                  hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
-                 device=None, generator=None, dropout_generator=None):
+                 device=None, generator=None, dropout_generator=None,
+                 dtype=None):
         super().__init__()
         kw = dict(init_type=init_type, device=device, generator=generator)
         self.encoder = Encoder2D(in_channels,
@@ -184,6 +194,7 @@ class UNet2D(nn.Module):
                                 dropout_generator=dropout_generator, **kw)
         self.hebb = hebb
         bind_paths(self, hebb)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         return self.out_conv(self.main_decoder(self.encoder(x)))
@@ -196,7 +207,8 @@ class UNetURPC2D(nn.Module):
 
     def __init__(self, in_channels: int, n_cls: int,
                  hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
-                 device=None, generator=None, dropout_generator=None):
+                 device=None, generator=None, dropout_generator=None,
+                 dtype=None):
         super().__init__()
         kw = dict(init_type=init_type, device=device, generator=generator)
         hk = dict(kernel_size=3, padding=1, **kw)
@@ -213,6 +225,7 @@ class UNetURPC2D(nn.Module):
         self.out_conv = HConv(f[0], n_cls, **hk)
         self.hebb = hebb
         bind_paths(self, hebb)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         shape = x.shape[2:]
@@ -242,7 +255,7 @@ class UNetCCT2D(nn.Module):
     def __init__(self, in_channels: int, n_cls: int,
                  hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
                  device=None, generator=None, dropout_generator=None,
-                 perturb_generator=None):
+                 perturb_generator=None, dtype=None):
         super().__init__()
         kw = dict(init_type=init_type, device=device, generator=generator)
         f = FEATURES
@@ -256,6 +269,7 @@ class UNetCCT2D(nn.Module):
         self.perturb_generator = perturb_generator
         self.hebb = hebb
         bind_paths(self, hebb)
+        set_compute_dtype(self, dtype)
 
     def decode(self, feats):
         x0, x1, x2, x3, x4 = feats
@@ -296,7 +310,7 @@ class UNetVAE2D(nn.Module):
     def __init__(self, in_channels: int, n_cls: int,
                  hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
                  device=None, generator=None, dropout_generator=None,
-                 latent_generator=None):
+                 latent_generator=None, dtype=None):
         super().__init__()
         kw = dict(init_type=init_type, device=device, generator=generator)
         f = FEATURES
@@ -311,6 +325,7 @@ class UNetVAE2D(nn.Module):
         self.latent_generator = latent_generator
         self.hebb = hebb
         bind_paths(self, hebb)
+        set_compute_dtype(self, dtype)
 
     def draw_latent(self, std):
         if self.latent_generator is None:
@@ -336,7 +351,8 @@ class UNetSuperpix2D(nn.Module):
 
     def __init__(self, in_channels: int, n_cls: int,
                  hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
-                 device=None, generator=None, dropout_generator=None):
+                 device=None, generator=None, dropout_generator=None,
+                 dtype=None):
         super().__init__()
         kw = dict(init_type=init_type, device=device, generator=generator)
         f = FEATURES
@@ -348,6 +364,7 @@ class UNetSuperpix2D(nn.Module):
         self.out_superpix = HConv(f[0], 2, kernel_size=1, **kw)
         self.hebb = hebb
         bind_paths(self, hebb)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         dec = self.main_decoder(self.encoder(x))

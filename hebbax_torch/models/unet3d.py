@@ -31,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..hebb.layers import HConv, HConvTranspose, bind_paths
+from ..hebb.layers import HConv, HConvTranspose, bind_paths, set_compute_dtype
 from ..hebb.spec import HebbSpec
 from .common import (CCT_PERTURB_KINDS, BatchNorm3d, cct_aux_outputs,
                      draw_perturbation, max_pool, perturb_features)
@@ -108,7 +108,7 @@ class UNet3D(nn.Module):
     def __init__(self, in_channels: int, n_cls: int,
                  init_features: int = 64, hebb: Optional[HebbSpec] = None,
                  init_type: str = "kaiming", device=None, generator=None,
-                 dropout_generator=None):
+                 dropout_generator=None, dtype=None):
         super().__init__()
         del dropout_generator           # no dropout in this network
         kw = dict(init_type=init_type, device=device, generator=generator)
@@ -117,6 +117,7 @@ class UNet3D(nn.Module):
         self.conv = HConv(init_features, n_cls, kernel_size=(1, 1, 1), **kw)
         self.hebb = hebb
         bind_paths(self, hebb)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         feats, bottleneck = self.encoder(x)
@@ -131,7 +132,7 @@ class UNet3DDTC(nn.Module):
     def __init__(self, in_channels: int, n_cls: int,
                  init_features: int = 64, hebb: Optional[HebbSpec] = None,
                  init_type: str = "kaiming", device=None, generator=None,
-                 dropout_generator=None):
+                 dropout_generator=None, dtype=None):
         super().__init__()
         del dropout_generator           # no dropout in this network
         kw = dict(init_type=init_type, device=device, generator=generator)
@@ -142,6 +143,7 @@ class UNet3DDTC(nn.Module):
         self.out_seg = HConv(init_features, n_cls, **hk)
         self.hebb = hebb
         bind_paths(self, hebb)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         feats, bottleneck = self.encoder(x)
@@ -166,7 +168,7 @@ class UNet3DCCT(nn.Module):
     def __init__(self, in_channels: int, n_cls: int,
                  init_features: int = 64, hebb: Optional[HebbSpec] = None,
                  init_type: str = "kaiming", device=None, generator=None,
-                 dropout_generator=None, perturb_generator=None):
+                 dropout_generator=None, perturb_generator=None, dtype=None):
         super().__init__()
         del dropout_generator           # no dropout in this network
         kw = dict(init_type=init_type, device=device, generator=generator)
@@ -176,6 +178,7 @@ class UNet3DCCT(nn.Module):
         self.perturb_generator = perturb_generator
         self.hebb = hebb
         bind_paths(self, hebb)
+        set_compute_dtype(self, dtype)
 
     def decode(self, levels):
         """levels: the four skip features, then the bottleneck."""
@@ -215,7 +218,7 @@ class UNet3DVAE(nn.Module):
     def __init__(self, in_channels: int, n_cls: int,
                  init_features: int = 64, hebb: Optional[HebbSpec] = None,
                  init_type: str = "kaiming", device=None, generator=None,
-                 dropout_generator=None, latent_generator=None):
+                 dropout_generator=None, latent_generator=None, dtype=None):
         super().__init__()
         del dropout_generator           # no dropout in this network
         kw = dict(init_type=init_type, device=device, generator=generator)
@@ -230,6 +233,7 @@ class UNet3DVAE(nn.Module):
         self.latent_generator = latent_generator
         self.hebb = hebb
         bind_paths(self, hebb)
+        set_compute_dtype(self, dtype)
 
     def draw_latent(self, std):
         if self.latent_generator is None:
@@ -256,7 +260,7 @@ class UNet3DSuperpix(nn.Module):
     def __init__(self, in_channels: int, n_cls: int,
                  init_features: int = 64, hebb: Optional[HebbSpec] = None,
                  init_type: str = "kaiming", device=None, generator=None,
-                 dropout_generator=None):
+                 dropout_generator=None, dtype=None):
         super().__init__()
         del dropout_generator           # no dropout in this network
         kw = dict(init_type=init_type, device=device, generator=generator)
@@ -267,6 +271,7 @@ class UNet3DSuperpix(nn.Module):
         self.out_superpix = HConv(init_features, 2, **hk)
         self.hebb = hebb
         bind_paths(self, hebb)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         feats, bottleneck = self.encoder(x)

@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..hebb.layers import HConv, bind_paths
+from ..hebb.layers import HConv, bind_paths, set_compute_dtype
 from ..hebb.spec import HebbSpec
 from .common import (Dropout3d, instance_norm, max_pool,
                      resize_linear_align_corners)
@@ -65,7 +65,8 @@ class UNet3DURPC(nn.Module):
 
     def __init__(self, in_channels: int, n_cls: int,
                  hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
-                 device=None, generator=None, dropout_generator=None):
+                 device=None, generator=None, dropout_generator=None,
+                 dtype=None):
         super().__init__()
         kw = dict(init_type=init_type, device=device, generator=generator)
         f = FILTERS
@@ -82,6 +83,7 @@ class UNet3DURPC(nn.Module):
                     HConv(f[i], n_cls, kernel_size=(1, 1, 1), **kw))
         self.hebb = hebb
         bind_paths(self, hebb)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         shape = x.shape[2:]

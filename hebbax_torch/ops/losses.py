@@ -1,7 +1,8 @@
 """Segmentation and consistency losses (``hebbax/ops/losses.py``),
 channels-first logits ``(N, C, *spatial)`` (2D or 3D) and integer masks
-``(N, *spatial)`` with ``ignore_index=-1`` marking invalid pixels.  Losses reduce in
-float32."""
+``(N, *spatial)`` with ``ignore_index=-1`` marking invalid pixels.  The
+segmentation losses upcast the logits and reduce in float32, as hebbax's
+do; the consistency losses keep the logits' dtype."""
 
 import math
 
@@ -91,11 +92,61 @@ def elbo_metric(vae_outputs, targets, beta=1.0, weight=None):
     return reconstr_loss + beta * kld
 
 
-def segmentation_loss(loss="dice"):
-    """Loss factory: dice or cross-entropy (the aux-weighted variants wait
-    for the multi-output networks)."""
+def bce_loss(logits, target, ignore_index=-1):
+    """Binary cross-entropy on sigmoid(logits) against a target of the
+    same shape, over the valid elements (``target != ignore_index``), eps
+    1e-7 inside the logs (hebbax's ``bce``)."""
+    probs = torch.sigmoid(logits.float())
+    valid = (target != ignore_index).float()
+    t = torch.clamp(target.float(), min=0.0)
+    eps = 1e-7
+    bce = (t * torch.log(probs + eps)
+           + (1 - t) * torch.log(1 - probs + eps)) * valid
+    return -torch.sum(bce) / torch.clamp(torch.sum(valid), min=1.0)
+
+
+def bce_bound_loss(logits, target, num_classes=2, ignore_index=-1):
+    """Per-class BCE on the clipped softmax, each class's positive term
+    weighted by log(V / (positives + 1)), V the valid pixels; the class
+    mean (hebbax's ``bce_bound_loss``)."""
+    probs = torch.softmax(logits.float(), dim=1)
+    onehot, valid = _one_hot_valid(target, num_classes, ignore_index)
+    n_valid = torch.clamp(torch.sum(valid), min=1.0)
+    losses = []
+    for i in range(num_classes):
+        p = torch.clamp(probs[:, i], 1e-3, 1 - 1e-3)
+        t = onehot[:, i] * valid
+        tt = torch.log(n_valid / (torch.sum(t) + 1))
+        bce = (tt * t * torch.log(p) + (1 - t) * torch.log(1 - p)) * valid
+        losses.append(-torch.sum(bce) / n_valid)
+    return torch.mean(torch.stack(losses))
+
+
+def aux_weighted(loss_fn, outputs, target, aux_weight):
+    """The main output's loss + aux_weight * each auxiliary output's."""
+    loss = loss_fn(outputs[0], target)
+    for out in outputs[1:]:
+        loss = loss + aux_weight * loss_fn(out, target)
+    return loss
+
+
+def segmentation_loss(loss="dice", aux=False, num_classes=None):
+    """Loss factory (hebbax's ``segmentation_loss``): dice, cross-entropy,
+    bce or bcebound; ``aux`` adds the auxiliary outputs at weight 0.4
+    (0.2 for cross-entropy)."""
     if loss in ("dice", "DICE"):
-        return dice_loss
-    if loss in ("crossentropy", "CE"):
-        return cross_entropy_loss
-    raise NotImplementedError(f"loss {loss!r} is not ported yet")
+        base, aw = dice_loss, 0.4
+    elif loss in ("crossentropy", "CE"):
+        base, aw = cross_entropy_loss, 0.2
+    elif loss == "bce":
+        base, aw = bce_loss, 0.4
+    elif loss == "bcebound":
+        def base(logits, target):
+            return bce_bound_loss(logits, target, num_classes or 2)
+        aw = 0.4
+    else:
+        raise ValueError(f"loss {loss!r} not supported")
+    if aux:
+        return lambda outputs, target: aux_weighted(base, outputs, target,
+                                                    aw)
+    return base

@@ -37,8 +37,10 @@ class SweepAccumulator:
         self.union = None
 
     def update(self, logits, target):
+        # the softmax and the per-batch counts in the logits' dtype, the
+        # running counters in float32, as hebbax's
         probs = torch.softmax(logits.detach(), dim=1)[:, 1]
-        tp, union = sweep_counts(probs, target)
+        tp, union = (c.float() for c in sweep_counts(probs, target))
         if self.tp is None:
             self.tp, self.union = tp, union
         else:

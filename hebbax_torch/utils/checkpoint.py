@@ -12,13 +12,22 @@ and the port in both directions.  The tree holds flax names and layouts
 (``params``/``batch_stats``, kernels ``(*k, I, O)``);
 :mod:`hebbax_torch.bridge` maps it to and from a ``state_dict``, told
 which modules are transpose convs (``transposed``) where a kernel is 5-D.
+
+The resume file ``resume.ckpt`` (:func:`save_train_state`) keeps the
+magic and the JSON meta (``epoch``, ``best_val``) but carries the port's
+own payload, ``torch.save`` bytes of the train state: each model's
+``state_dict`` (parameters and BN statistics), each optimizer's, and the
+step the schedule reads.  Each package reads only its own resume file.
 """
 
+import dataclasses
+import io
 import json
 import os
 import struct
 
 import numpy as np
+import torch
 
 MAGIC = b"HBAXCKP1"
 _EXT_NDARRAY = 1
@@ -278,3 +287,60 @@ def load_state_dict(path, transposed=None, flipped=None):
     variables, meta = load_snapshot(path)
     return from_flax(variables["params"], variables.get("batch_stats"),
                      transposed, flipped), meta
+
+
+# -- resume -----------------------------------------------------------------
+
+def _train_payload(state):
+    """The train state's models and optimizers as state_dicts, and its
+    step: every field of a :class:`~hebbax_torch.engine.state.TrainState`
+    or :class:`~hebbax_torch.engine.semi.DualState` but the schedules
+    (functions of the step) and an absent optimizer (UAMT's teacher)."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, (torch.nn.Module, torch.optim.Optimizer)):
+            out[f.name] = v.state_dict()
+        elif isinstance(v, int):
+            out[f.name] = v
+    return out
+
+
+def save_train_state(state, path, epoch, best_val=None):
+    """Write ``<path>/resume.ckpt`` atomically (a tmp file, then
+    ``os.replace``): meta ``{"epoch", "best_val"}`` and the train state
+    (:func:`_train_payload`)."""
+    os.makedirs(path, exist_ok=True)
+    buf = io.BytesIO()
+    torch.save(_train_payload(state), buf)
+    meta = {"epoch": int(epoch),
+            "best_val": list(best_val) if best_val else None}
+    header = json.dumps(meta).encode()
+    out = os.path.join(path, "resume.ckpt")
+    tmp = out + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(MAGIC)
+        f.write(struct.pack("<Q", len(header)))
+        f.write(header)
+        f.write(buf.getvalue())
+    os.replace(tmp, out)
+    return out
+
+
+def load_train_state(state, path):
+    """Restore a :func:`save_train_state` file into ``state`` in place
+    (models, optimizers, step); returns (state, meta)."""
+    with open(path, "rb") as f:
+        if f.read(len(MAGIC)) != MAGIC:
+            raise ValueError(f"{path} is not a hebbax checkpoint")
+        (hlen,) = struct.unpack("<Q", f.read(8))
+        meta = json.loads(f.read(hlen).decode())
+        payload = torch.load(io.BytesIO(f.read()), map_location="cpu",
+                             weights_only=True)
+    for name, v in payload.items():
+        target = getattr(state, name)
+        if isinstance(target, (torch.nn.Module, torch.optim.Optimizer)):
+            target.load_state_dict(v)
+        else:
+            setattr(state, name, v)
+    return state, meta

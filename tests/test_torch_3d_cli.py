@@ -226,6 +226,12 @@ def test_device_flag_raises_without_cuda(synth, tmp_path):
                                   ["--resume", "1"],
                                   ["--profile_dir", "prof"]])
 def test_unported_flags_raise(flag):
+    """Only ``--dp_devices != 1`` is left unported: it raises, and the
+    flags ported since (``--dtype bfloat16``, ``--resume``,
+    ``--profile_dir``) pass."""
     args = common3d.base_parser_3d().parse_args(flag)
-    with pytest.raises(NotImplementedError):
+    if flag[0] == "--dp_devices":
+        with pytest.raises(NotImplementedError):
+            common.check_ported(args)
+    else:
         common.check_ported(args)
