@@ -154,8 +154,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
    with ``--profile_dir``: the second run trains epoch 2 alone, the trace
    is written, every augmented batch lies on the card; one
    ``bf16_flags_path`` line carries (w)-(y);
-11. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
-   urpc_pretrain, cct_pretrain and the paths of 6 to 10), the card's
+11. every Hebbian rule and the VNet family, none reaching K1 (0 launches
+   on each path): at each site of a training forward of full-width
+   ``unet`` (batch 2, 64x64), ``unet3d`` (batch 2, 32^3) and ``vnet``
+   (its 4 strided down convs and 4 transpose up convs, batch 2, 32^3),
+   each rule's delta on the card against the same rule on the CPU from
+   the same tensors (hpca and contrastive on ``unet``; hpca_t, swta and
+   contrastive on ``unet3d``; swta, hpca, hpca_t and contrastive on
+   ``vnet``; contrastive with the batch reversed), within 1e-3 of
+   max|delta|; a strided 2D CUDA call through the dispatcher equals the
+   composed rule and leaves K1's count unchanged; card-vs-CPU training
+   forwards of ``vnet``, ``vnet_dtc`` and ``vnet_cct`` (same draws) at
+   batch 2, 32^3, within 1e-4 of max(1, max|output|); (z)
+   ``pretrain_hebbian_unsup_2d -n unet --hebb_mode hpca`` and
+   ``contrastive`` with (a)'s flags (4 steps each), then ``train_sup_2d
+   --load_hebbian_weights`` and ``test_2d`` from the hpca snapshot; (aa)
+   ``pretrain_hebbian_unsup_3d -n unet3d --exclude conv`` under hpca_t,
+   swta (4 steps each, batch 1) and contrastive (2 steps at batch 2: at
+   batch 1 its permutation is the identity and its delta 0) over phase
+   7's volumes, the regime-50 half, one patch per volume; (ab) ``-n vnet
+   --hebb_mode swta_t --exclude out_tr.conv2`` likewise, ``train_sup_3d
+   -n vnet --load_hebbian_weights`` and ``test_3d``; (ac) ``train_semi_3d
+   cct -n vnet_cct`` and ``dtc -n vnet_dtc`` from kaiming (4 steps each)
+   and ``test_3d`` on each; every run's Hebbian kernels unchanged at lr 0
+   and changed after (under contrastive, unless every permutation drawn
+   was the identity), steady and profiled steps and peak memory; one
+   ``rules_vnet_path`` line carries them;
+12. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
+   urpc_pretrain, cct_pretrain and the paths of 6 to 11), the card's
    name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
@@ -1229,12 +1255,29 @@ def cli_base_3d(device, data_root, net=None):
             "--num_workers", "4"]
 
 
-def pretrain_3d(data_root, device, net, watch, heads, tag, extra=()):
-    """pretrain_hebbian_unsup_3d of ``net`` with the sweep's flags: no K1
-    launch, every HConv's output in the run's ``--dtype``, finite losses,
-    the ``watch`` Hebbian kernels unchanged in epoch 0 (lr 0) and changed
-    in epoch 1, every ``heads`` weight trained, last.ckpt; then steady and
-    profiled steps and the peak memory."""
+def record_permutations(model, watch):
+    """{weight name: [the permutations its contrastive site drew]} for the
+    ``watch`` kernels, filled as the model runs."""
+    perms = {n: [] for n in watch}
+    for n in watch:
+        conv = model.get_submodule(n.rsplit(".", 1)[0])
+
+        def recording(size, draw=conv.draw_permutation, seen=perms[n]):
+            seen.append(draw(size))
+            return seen[-1]
+        conv.draw_permutation = recording
+    return perms
+
+
+def pretrain_3d(data_root, device, net, watch, heads, tag, extra=(),
+                mode="swta_t", exclude=EXCLUDE_3D):
+    """pretrain_hebbian_unsup_3d of ``net`` with the sweep's flags (rule
+    ``mode``, the ``exclude`` list): no K1 launch, every HConv's output in
+    the run's ``--dtype``, finite losses, the ``watch`` Hebbian kernels
+    unchanged in epoch 0 (lr 0) and changed in epoch 1 (under contrastive
+    unless every permutation the site drew was the identity: its two
+    terms then cancel exactly), every ``heads`` weight trained,
+    last.ckpt; then steady and profiled steps and the peak memory."""
     import torch
     from hebbax_torch.cli import common, common3d
     from hebbax_torch.cli import pretrain_hebbian_unsup_3d as pretrain
@@ -1243,12 +1286,13 @@ def pretrain_3d(data_root, device, net, watch, heads, tag, extra=()):
     on = "cpu" if device == "cpu" else "cuda"
     args = pretrain.add_args(common3d.base_parser_3d()).parse_args(
         cli_base_3d(device, data_root, net) + list(extra) + [
-            "--hebb_mode", "swta_t", "--hebb_inv_temp", str(int(K_TEMP)),
-            "--exclude", *EXCLUDE_3D, "--optimizer", "adam", "-l", "1e-6"])
+            "--hebb_mode", mode, "--hebb_inv_temp", str(int(K_TEMP)),
+            "--exclude", *exclude, "--optimizer", "adam", "-l", "1e-6"])
     reset_peak(on)
     trainer = pretrain.build(args)
     model = trainer.state.model
     dtypes, hooks = conv_dtypes(model)
+    perms = record_permutations(model, watch)
     sd0 = model.state_dict()
     w0 = {n: sd0[n].detach().clone() for n in watch}
     heads0 = {n: sd0[n].detach().clone() for n in heads}
@@ -1280,8 +1324,11 @@ def pretrain_3d(data_root, device, net, watch, heads, tag, extra=()):
     for n in watch:
         check(all(torch.equal(s[n], w0[n]) for s in snaps[:per_epoch]),
               f"{tag} {n} changed in epoch 0 (lr 0)")
-        check(not torch.equal(snaps[-1][n], w0[n]),
-              f"{tag} {n} did not change in epoch 1")
+        moves = not all(torch.equal(p, torch.arange(len(p)))
+                        for p in perms[n]) if mode == "contrastive" else True
+        check(torch.equal(snaps[-1][n], w0[n]) != moves,
+              f"{tag} {n}: changed in epoch 1 is "
+              f"{not torch.equal(snaps[-1][n], w0[n])}, expected {moves}")
     sd = model.state_dict()
     for n in heads:
         check(not torch.equal(sd[n], heads0[n]),
@@ -1310,10 +1357,12 @@ def phase_3d_pretrain(data_root, device="0"):
                         "decoder.upconv1.weight"), ("conv.weight",), "(k)")
 
 
-def phase_3d_finetune(data_root, snap, device="0", extra=(), tag="(l)"):
+def phase_3d_finetune(data_root, snap, device="0", extra=(), tag="(l)",
+                      net=None, head="conv"):
     """(l) train_sup_3d --load_hebbian_weights at regime 50 with the base
-    parser's SGD lr 0.1 (and the ``extra`` flags): the trunk equal to the
-    snapshot before the first step, conv re-initialised, no K1 launch,
+    parser's SGD lr 0.1 (and the ``extra`` flags) on ``net`` (NET_3D): the
+    trunk equal to the snapshot before the first step, the excluded
+    ``head`` re-initialised, no K1 launch,
     every HConv's output in the run's ``--dtype``, finite losses,
     best_JI.ckpt; then steady and profiled steps and the peak memory."""
     import torch
@@ -1325,7 +1374,7 @@ def phase_3d_finetune(data_root, snap, device="0", extra=(), tag="(l)"):
 
     on = "cpu" if device == "cpu" else "cuda"
     args = train_sup_3d.add_args(common3d.base_parser_3d()).parse_args(
-        cli_base_3d(device, data_root) + list(extra) + [
+        cli_base_3d(device, data_root, net) + list(extra) + [
             "--load_hebbian_weights", snap, "--hebb_inv_temp",
             str(int(K_TEMP)), "--regime", "50"])
     reset_peak(on)
@@ -1334,12 +1383,13 @@ def phase_3d_finetune(data_root, snap, device="0", extra=(), tag="(l)"):
     dtypes, hooks = conv_dtypes(model)
     loaded, _ = load_state_dict(snap, transposed_paths(model))
     sd = model.state_dict()
-    differ = [n for n, t in sd.items() if not n.startswith("conv.")
+    differ = [n for n, t in sd.items() if not n.startswith(head + ".")
               and not torch.equal(t.cpu(), loaded[n])]
     check(not differ, f"{tag} the trunk differs from the snapshot: "
                       f"{differ[:5]}")
-    check(not torch.equal(sd["conv.weight"].cpu(), loaded["conv.weight"]),
-          f"{tag} conv was not re-initialised")
+    check(not torch.equal(sd[head + ".weight"].cpu(),
+                          loaded[head + ".weight"]),
+          f"{tag} {head} was not re-initialised")
     times = []
     raw_step = trainer.train_step
     trainer.train_step = timed_step(raw_step, times)
@@ -1523,7 +1573,9 @@ def trunk_equal_to_snapshot(model, snap, exclude):
             and not torch.equal(t.cpu(), loaded[n])]
 
 
-def phase_semi_3d_train(data_root, snaps, device="0"):
+def phase_semi_3d_train(data_root, snaps, device="0", runs=SEMI_3D,
+                        spv=SPV_3D_SEMI, tag="p", test_tag="q",
+                        suffix="_3d"):
     """(p) train_semi_3d at regime 50 with the sweep's flags (SGD, lr 0.1,
     dice, unsup weight 5, validation every epoch), batch 1, 96x96x80
     patches, 2 epochs, warmup 1, each algorithm from its snapshot or from
@@ -1531,7 +1583,8 @@ def phase_semi_3d_train(data_root, snaps, device="0"):
     to the Hebbian snapshot before the first step, for uamt / cps
     checkpoints2/last.ckpt, both models moved and model 2 unlike model 1;
     then steady and profiled steps and the peak memory; (q) test_3d on
-    each run's best_JI.ckpt, as (m)."""
+    each run's best_JI.ckpt, as (m).  ``runs``, ``spv``, the tags and the
+    launch keys' ``suffix`` serve phase 11's VNet runs too."""
     import gc
 
     import torch
@@ -1541,8 +1594,8 @@ def phase_semi_3d_train(data_root, snaps, device="0"):
     on = "cpu" if device == "cpu" else "cuda"
     out = {k: {} for k in ("launches", "steps", "step_ms", "steady",
                            "profile", "peak_gib", "test")}
-    for algo, net, src in SEMI_3D:
-        argv = cli_base_3d(device, data_root, net) + SPV_3D_SEMI + [
+    for algo, net, src in runs:
+        argv = cli_base_3d(device, data_root, net) + spv + [
             "--regime", "50", "--optimizer", "sgd", "-l", "0.1", "--loss",
             "dice", "--unsup_weight", "5", "--validate_iter", "1"]
         if src:
@@ -1559,7 +1612,7 @@ def phase_semi_3d_train(data_root, snaps, device="0"):
         if src:
             differ = trunk_equal_to_snapshot(models[0], snaps[src],
                                              EXCLUDE_3D)
-            check(not differ, f"(p) {algo}: the trunk differs from the "
+            check(not differ, f"({tag}) {algo}: the trunk differs from the "
                               f"snapshot: {differ[:5]}")
         watch = next(n for n, _ in models[0].named_parameters()
                      if n.endswith("conv1.weight"))
@@ -1569,38 +1622,39 @@ def phase_semi_3d_train(data_root, snaps, device="0"):
         trainer.train_step = timed_step(raw_step, times)
         kernels.SWTA_DELTA.launches = 0
         trainer.run()
-        launches = out["launches"][f"{algo}_3d"] = kernels.SWTA_DELTA.launches
-        check(launches == 0, f"(p) {algo} launched K1 {launches} times")
+        launches = kernels.SWTA_DELTA.launches
+        out["launches"][f"{algo}{suffix}"] = launches
+        check(launches == 0, f"({tag}) {algo} launched K1 {launches} times")
         check(all(all_on(m, on) for m in models),
-              f"(p) {algo}: a model tensor is off {on}")
+              f"({tag}) {algo}: a model tensor is off {on}")
         losses, ok = finite_losses(trainer)
-        check(ok, f"(p) {algo} losses {losses}")
+        check(ok, f"({tag}) {algo} losses {losses}")
         ckpts = trainer.paths.checkpoints
         check(os.path.exists(os.path.join(ckpts, "best_JI.ckpt")),
-              f"(p) {algo} wrote no best_JI.ckpt")
+              f"({tag}) {algo} wrote no best_JI.ckpt")
         w1 = [m.state_dict()[watch] for m in models]
-        check(not torch.equal(w1[0], w0[0]), f"(p) {algo}: model 1 "
+        check(not torch.equal(w1[0], w0[0]), f"({tag}) {algo}: model 1 "
                                              f"unchanged")
         if dual:
             check(os.path.exists(os.path.join(ckpts + "2", "last.ckpt")),
-                  f"(p) {algo} wrote no checkpoints2/last.ckpt")
+                  f"({tag}) {algo} wrote no checkpoints2/last.ckpt")
             check(not torch.equal(w1[1], w0[1]),
-                  f"(p) {algo}: model 2 unchanged")
+                  f"({tag}) {algo}: model 2 unchanged")
             check(not torch.equal(w1[1], w1[0]),
-                  f"(p) {algo}: model 2 equals model 1")
+                  f"({tag}) {algo}: model 2 equals model 1")
         out["steps"][algo], out["step_ms"][algo] = len(times), times
-        log(f"(p) {algo} on {net}: {len(times)} steps, K1 launches "
+        log(f"({tag}) {algo} on {net}: {len(times)} steps, K1 launches "
             f"{launches}, step ms {[round(t, 3) for t in times]}, losses "
             f"{losses}")
         out["steady"][algo] = steady_step_ms(trainer, raw_step)
         out["profile"][algo] = profile_steps(
             trainer, raw_step, float(np.median(out["steady"][algo])))
-        log(f"(p) {algo} profile " + json.dumps(out["profile"][algo]))
+        log(f"({tag}) {algo} profile " + json.dumps(out["profile"][algo]))
         if on == "cuda":
             out["peak_gib"][algo] = torch.cuda.max_memory_allocated() / 2**30
-            log(f"(p) {algo} peak memory {out['peak_gib'][algo]:.3f} GiB "
-                f"(torch.cuda.max_memory_allocated, the run and its timed "
-                f"steps)")
+            log(f"({tag}) {algo} peak memory {out['peak_gib'][algo]:.3f} "
+                f"GiB (torch.cuda.max_memory_allocated, the run and its "
+                f"timed steps)")
         run = trainer.paths.run
         del trainer, models, raw_step
         gc.collect()
@@ -1608,8 +1662,8 @@ def phase_semi_3d_train(data_root, snaps, device="0"):
             torch.cuda.empty_cache()
         l_q, out["test"][algo] = phase_3d_test(
             data_root, run, device, net=net, hebbian=bool(src),
-            tag=f"(q) {algo}")
-        out["launches"][f"test_{algo}_3d"] = l_q
+            tag=f"({test_tag}) {algo}")
+        out["launches"][f"test_{algo}{suffix}"] = l_q
     return out
 
 
@@ -2381,6 +2435,344 @@ def phase_flags(items, device="0"):
                                  "augmented_batches": len(devices)}
 
 
+# -- 11: every Hebbian rule, and the VNet family -----------------------------
+
+RULES_2D = ("hpca", "contrastive")
+RULES_3D = ("hpca_t", "swta", "contrastive")
+RULES_VNET = ("swta", "hpca", "hpca_t", "contrastive")
+VNET_EXCLUDE = ("out_tr.conv2",)
+# phase 11 cuts steps, not width: the regime-50 half of the 4 train
+# volumes, one patch from each, one patch per val volume
+SPV_RULES = ["--samples_per_volume_train", "1", "--samples_per_volume_val",
+             "1", "--regime", "50"]
+VNET_SEMI = (("cct", "vnet_cct", None), ("dtc", "vnet_dtc", None))
+
+
+def rule_deltas_card_vs_cpu(tag, sites, modes, device):
+    """Card against CPU, per delta: each rule of ``modes`` at each site,
+    from the same tensors (the raw weight, the bias, the layer's input and
+    output, its stride and padding; contrastive with the batch reversed),
+    within 1e-3 of the CPU delta's max|delta|; no K1 launch.  Returns the
+    worst error of each mode."""
+    import torch
+    from hebbax_torch.hebb import kernels, rules
+    from hebbax_torch.hebb.spec import HebbSpec
+
+    worst = {}
+    for mode in modes:
+        spec = HebbSpec(mode=mode, k=K_TEMP)
+        errs = []
+        for name, mod, x, y in sites:
+            perm = torch.arange(x.shape[0] - 1, -1, -1)
+
+            def delta(dev, mod=mod, x=x, y=y, perm=perm):
+                return rules.compute_delta(
+                    spec, mod.weight.detach().to(dev), x.to(dev), y.to(dev),
+                    mod.padding, mod.transpose, mod.stride,
+                    bias=mod.bias.detach().to(dev), perm=perm.to(dev))
+
+            before = kernels.SWTA_DELTA.launches
+            dg = delta(device).cpu()
+            check(kernels.SWTA_DELTA.launches == before,
+                  f"{tag} {mode} at {name} launched K1")
+            dc = delta("cpu")
+            scale = float(dc.abs().max())
+            check(bool(torch.isfinite(dc).all()) and scale > 0,
+                  f"{tag} {mode} at {name}: CPU delta scale {scale}")
+            err = float((dg - dc).abs().max()) / scale
+            check(err <= 1e-3, f"{tag} {mode} at {name}: card vs CPU "
+                               f"{err} of max|delta|")
+            errs.append(err)
+        worst[mode] = max(errs)
+        log(f"{tag} {mode}: {len(sites)} sites card vs CPU, worst "
+            f"{worst[mode]:.3e} of max|delta|, 0 launches")
+    return worst
+
+
+def strided_2d_site(device, images):
+    """A strided 2D CUDA call through the dispatcher (a k = s = 2 conv of
+    32 filters over the batch of 2D images) equals the composed rule and
+    leaves K1's launch count unchanged."""
+    import torch
+    import torch.nn.functional as F
+    from hebbax_torch.hebb import kernels, rules
+
+    x = images[:, :, :64, :64].contiguous()
+    w = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        (32, x.shape[1], 2, 2)).astype(np.float32)).to(device)
+    y = F.conv2d(x, w, stride=2)
+    before = kernels.SWTA_DELTA.launches
+    got = kernels.swta_delta(w, x, y, K_TEMP, (0, 0), (2, 2))
+    torch.cuda.synchronize()
+    check(kernels.SWTA_DELTA.launches == before,
+          "a strided 2D site launched K1")
+    ref = rules.swta_wgrad_delta(w, x, y, K_TEMP, 0, 2)
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    check(err <= TOL, f"the strided 2D site differs from the composed rule "
+                      f"by {err} of max|delta|")
+    log(f"(z) strided 2D site {tuple(x.shape)} k=s=2: K1 launches "
+        f"unchanged, {err:.3e} of max|delta| from the composed rule")
+    return err
+
+
+def pretrain_2d_rule(items, device, mode):
+    """``pretrain_hebbian_unsup_2d -n unet --hebb_mode <mode>`` with (a)'s
+    flags: no K1 launch, finite losses, the watched Hebbian kernels
+    unchanged in epoch 0 (lr 0) and changed in epoch 1; then steady and
+    profiled steps and the peak memory.  Returns (launches, last.ckpt,
+    record)."""
+    import torch
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import pretrain_hebbian_unsup_2d as pretrain
+    from hebbax_torch.hebb import kernels
+
+    on = "cpu" if device == "cpu" else "cuda"
+    tag = f"(z) {mode}"
+    args = pretrain.add_args(common.base_parser_2d()).parse_args(
+        cli_base(device) + [
+            "-n", "unet", "--exclude", "out_conv", "--hebb_mode", mode,
+            "--hebb_inv_temp", str(int(K_TEMP)), "--optimizer", "adam",
+            "-l", "1e-6", "--debug", ""])
+    reset_peak(on)
+    trainer = pretrain.build(args, make_loaders(items, args, 100))
+    model = trainer.state.model
+    watch = ("encoder.in_conv.conv2.weight",
+             "main_decoder.up4.conv.conv1.weight")
+    perms = record_permutations(model, watch)
+    sd0 = model.state_dict()
+    w0 = {n: sd0[n].detach().clone() for n in watch}
+    times, snaps = [], []
+    raw_step = trainer.train_step
+
+    def watched(state, batch):
+        out = timed_step(raw_step, times)(state, batch)
+        sd = state.model.state_dict()
+        snaps.append({n: sd[n].detach().clone() for n in watch})
+        return out
+
+    trainer.train_step = watched
+    kernels.SWTA_DELTA.launches = 0
+    trainer.run()
+    launches = kernels.SWTA_DELTA.launches
+    per_epoch = len(trainer.loaders["train"])
+    check(len(times) == 2 * per_epoch, f"{tag} ran {len(times)} steps")
+    check(launches == 0, f"{tag} launched K1 {launches} times")
+    for n in watch:
+        check(all(torch.equal(s[n], w0[n]) for s in snaps[:per_epoch]),
+              f"{tag} {n} changed in epoch 0 (lr 0)")
+        moves = not all(torch.equal(p, torch.arange(len(p)))
+                        for p in perms[n]) if mode == "contrastive" else True
+        check(torch.equal(snaps[-1][n], w0[n]) != moves,
+              f"{tag} {n}: changed in epoch 1 is "
+              f"{not torch.equal(snaps[-1][n], w0[n])}, expected {moves}")
+    check(all_on(model, on), f"{tag}: a model tensor is off {on}")
+    losses, ok = finite_losses(trainer)
+    check(ok, f"{tag} losses {losses}")
+    log(f"{tag} pretrain: {len(times)} steps, K1 launches {launches}, "
+        f"step ms {[round(t, 3) for t in times]}, losses {losses}")
+    steady = steady_step_ms(trainer, raw_step)
+    profiled = profile_steps(trainer, raw_step, float(np.median(steady)))
+    log(f"{tag} profile " + json.dumps(profiled))
+    peak = peak_gib(on)
+    log(f"{tag} peak memory {peak} GiB (torch.cuda.max_memory_allocated, "
+        f"the run and its timed steps)")
+    snap = os.path.join(trainer.paths.checkpoints, "last.ckpt")
+    return launches, snap, {"steps": len(times), "step_ms": times,
+                            "steady": steady, "profile": profiled,
+                            "peak_gib": peak}
+
+
+def finetune_test_2d(items, snap, device, tag):
+    """``train_sup_2d --load_hebbian_weights`` from ``snap`` at regime 50
+    and ``test_2d --hebbian_pretrain 1`` on its best snapshot, each with
+    its K1 count zeroed before and read after (0 launches), timed like
+    (b).  Returns (launches by path, record)."""
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import test_2d
+    from hebbax_torch.cli import train_sup_2d
+    from hebbax_torch.config.datasets import dataset_cfg, input_stats
+    from hebbax_torch.data import Loader
+    from hebbax_torch.hebb import kernels
+
+    on = "cpu" if device == "cpu" else "cuda"
+    args = train_sup_2d.add_args(common.base_parser_2d()).parse_args(
+        cli_base(device) + ["--load_hebbian_weights", snap, "--regime",
+                            "50", "--debug", ""])
+    reset_peak(on)
+    trainer = train_sup_2d.build(args, make_loaders(items, args, 50))
+    rec = run_path(trainer, f"{tag} fine-tune", on,
+                   watch=("encoder.in_conv.conv1.weight",))
+    targs = test_2d.build_parser().parse_args(
+        ["--device", device, "--path_exp", rec["run"], "--hebbian_pretrain",
+         "1", "-b", str(BATCH), "--num_workers", "4"])
+    mean, std = input_stats(dataset_cfg("GlaS"), "image")
+    test_ds = array_dataset_class()(items["val"], mean, std, "test")
+    kernels.SWTA_DELTA.launches = 0
+    metrics = test_2d.run_test(targs, Loader(test_ds, BATCH, num_workers=4))
+    l_test = kernels.SWTA_DELTA.launches
+    check(l_test == 0, f"{tag} test launched K1 {l_test} times")
+    check(metrics is not None and all(np.isfinite(v)
+                                      for v in metrics.values())
+          and 0.0 <= metrics["segm/dice"] <= 1.0,
+          f"{tag} test metrics {metrics}")
+    log(f"{tag} test: Dice {metrics['segm/dice']:.4f} Jaccard "
+        f"{metrics['segm/jaccard']:.4f}")
+    del trainer
+    release()
+    return rec["launches"], l_test, dict(rec, test=metrics)
+
+
+def vnet_reference(device):
+    """VNet's card-vs-CPU training forwards at batch 2, 32^3 (skip dropout
+    off on both, VNetCCT with the same perturbation draws): every output
+    within 1e-4 of max(1, max|output|)."""
+    import torch
+    from hebbax_torch.models import get_network
+    from hebbax_torch.ops.dropout import Dropout
+    from hebbax_torch.utils.seeding import make_generator
+
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (2, 1, 32, 32, 32)).astype(np.float32))
+    out = {}
+    for net in ("vnet", "vnet_dtc", "vnet_cct"):
+        gpu, cpu = [get_network(net, 1, 2, device=dev,
+                                generator=make_generator(3))
+                    for dev in (device, "cpu")]
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        for m in (gpu, cpu):
+            for mod in m.modules():
+                if isinstance(mod, Dropout):
+                    mod.p = 0.0         # dropout off: the streams differ
+            m.train()
+        if net == "vnet_cct":
+            share_cct_draws(cpu, gpu, device)
+        with torch.no_grad():
+            out_c = cpu(x)
+            out_g = gpu(x.to(device))
+        if net == "vnet":
+            out_c, out_g = (out_c,), (out_g,)
+        rel = max(float((g.cpu() - c).abs().max())
+                  / max(1.0, float(c.abs().max()))
+                  for g, c in zip(out_g, out_c))
+        check(rel <= 1e-4, f"(ab) {net}: outputs card vs CPU differ by "
+                           f"{rel} of max(1, max|output|)")
+        out[net] = rel
+        log(f"(ab) small-input reference {net}: outputs {rel:.3e} of "
+            f"max(1, max|output|)")
+        del gpu, cpu
+    release()
+    return out
+
+
+def phase_rules(items, images, data_root, device="0"):
+    """Phase 11: (z) the 2D rules on ``unet``, (aa) the 3D rules on
+    ``unet3d``, (ab) the VNet chain, (ac) VNet's semi runs; returns the
+    launches by path and the ``rules_vnet_path`` record."""
+    import torch
+    from hebbax_torch.hebb.spec import HebbSpec
+    from hebbax_torch.models import get_network
+    from hebbax_torch.utils.seeding import make_generator
+
+    on = "cpu" if device == "cpu" else "cuda"
+    card = torch.device("cuda", 0) if on == "cuda" else torch.device("cpu")
+    launches, record = {}, {"card_vs_cpu": {}}
+
+    # card against CPU, per delta, at each network's sites
+    def sites_of(net, spec, x, keep=None):
+        """(name, module, input, output) of the Hebbian sites of one
+        training forward of ``net`` at ``x``."""
+        model = get_network(net, x.shape[1], 2, hebb=spec, device=card,
+                            generator=make_generator(3))
+        sites = [(name, model.get_submodule(name), xi, yo)
+                 for name, _, xi, yo, _ in capture_sites(model, x.to(card))]
+        return [s for s in sites if keep is None or keep(s[1])]
+
+    x2 = images[:2, :, :64, :64].contiguous()
+    record["card_vs_cpu"]["unet"] = rule_deltas_card_vs_cpu(
+        "(z)", sites_of("unet", HebbSpec(exclude=("out_conv",)), x2),
+        RULES_2D, card)
+    x3 = torch.from_numpy(np.random.default_rng(19).standard_normal(
+        (2, 1, 32, 32, 32)).astype(np.float32))
+    record["card_vs_cpu"]["unet3d"] = rule_deltas_card_vs_cpu(
+        "(aa)", sites_of(NET_3D, HebbSpec(exclude=("conv",)), x3), RULES_3D,
+        card)
+    record["card_vs_cpu"]["vnet"] = rule_deltas_card_vs_cpu(
+        "(ab)", sites_of("vnet", HebbSpec(exclude=VNET_EXCLUDE), x3,
+                         lambda m: m.transpose or m.stride != (1, 1, 1)),
+        RULES_VNET, card)
+    release()
+    record["strided_2d_site_rel"] = strided_2d_site(card, images)
+    record["vnet_forward"] = vnet_reference(card)
+
+    # (z) pretraining under hpca and contrastive; fine-tune + test from hpca
+    paths, tests = {}, {}
+    for mode in RULES_2D:
+        key = f"{mode}_pretrain_2d"
+        launches[key], snap, paths[key] = pretrain_2d_rule(items, device,
+                                                           mode)
+        if mode == "hpca":
+            snap_hpca = snap
+        release()
+    l_sup, l_test, rec = finetune_test_2d(items, snap_hpca, device,
+                                          "(z) hpca")
+    launches.update(hpca_sup_2d=l_sup, hpca_test_2d=l_test)
+    tests["hpca_test_2d"] = rec.pop("test")
+    paths["hpca_sup_2d"] = rec
+
+    def path_3d(key, out):
+        launches[key], steps, times, steady, prof = out
+        paths[key] = {"steps": steps, "step_ms": times, "steady": steady,
+                      "profile": prof, "peak_gib": peak_gib(on)}
+        release()
+
+    # (aa) the 3D rules on unet3d, conv excluded; contrastive at batch 2
+    # (at batch 1 its permutation is the identity and its delta 0)
+    for mode in RULES_3D:
+        extra = SPV_RULES + (["-b", "2"] if mode == "contrastive" else [])
+        reset_peak(on)
+        l_aa, _, *rest = pretrain_3d(
+            data_root, device, NET_3D, ("encoder.encoder1.conv1.weight",
+                                        "decoder.upconv1.weight"),
+            ("conv.weight",), f"(aa) {mode}", extra, mode=mode,
+            exclude=("conv",))
+        path_3d(f"{mode}_pretrain_3d", (l_aa, *rest))
+
+    # (ab) the VNet chain: swta_t pretrain -> fine-tune -> test_3d
+    reset_peak(on)
+    l_ab, snap_v, *rest = pretrain_3d(
+        data_root, device, "vnet", ("down_tr32.down_conv.weight",
+                                    "up_tr32.up_conv.weight"),
+        ("out_tr.conv2.weight",), "(ab) vnet", SPV_RULES,
+        exclude=VNET_EXCLUDE)
+    path_3d("vnet_pretrain", (l_ab, *rest))
+    reset_peak(on)
+    l_sup, run_v, *rest = phase_3d_finetune(
+        data_root, snap_v, device, extra=SPV_RULES[:4],
+        tag="(ab) vnet fine-tune", net="vnet", head="out_tr.conv2")
+    path_3d("vnet_sup", (l_sup, *rest))
+    launches["vnet_test"], tests["vnet_test"] = phase_3d_test(
+        data_root, run_v, device, net="vnet", tag="(ab) vnet test")
+
+    # (ac) VNet's semi runs from kaiming, then test_3d
+    ac = phase_semi_3d_train(data_root, {}, device, runs=VNET_SEMI,
+                             spv=SPV_RULES[:4], tag="ac", test_tag="ac",
+                             suffix="_vnet_3d")
+    launches.update(ac["launches"])
+    for algo, net, _ in VNET_SEMI:
+        paths[f"{algo}_vnet_3d"] = {k: ac[k].get(algo) for k in (
+            "steps", "step_ms", "steady", "profile", "peak_gib")}
+        tests[f"test_{algo}_vnet_3d"] = ac["test"][algo]
+    record.update(
+        launches=dict(launches),
+        steps={k: v["steps"] for k, v in paths.items()},
+        steady_step_ms=summary({k: v["steady"] for k, v in paths.items()}),
+        profile=profile_summary({k: v["profile"]
+                                 for k, v in paths.items()}),
+        peak_gib={k: v["peak_gib"] for k, v in paths.items()},
+        test=tests, patch=list(PATCH), spv=SPV_RULES)
+    return launches, record
+
+
 def profile_summary(profiled):
     return {k: {"device_ms": v["device_ms"], "busy_share": v["busy_share"],
                 "groups_ms": v["groups_ms"], "top_ms": v["top_ms"][:3]}
@@ -2480,6 +2872,11 @@ def main():
                                          "y": record_y}))
     lap(10)
 
+    l_11, record_11 = phase_rules(items, images, data_root)
+    launches.update(l_11)
+    log("rules_vnet_path " + json.dumps(record_11))
+    lap(11)
+
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -2495,7 +2892,8 @@ def main():
             "a", "urpc_pretrain", "cct_pretrain", "vae_pretrain",
             "superpix_pretrain", "superdiff_pretrain", "em_vae",
             "em_superpix", "test_em_vae", "test_em_superpix",
-            "pretrain_3d", "sup_3d", "test_3d", *l_8, *l_9, *l_10)},
+            "pretrain_3d", "sup_3d", "test_3d", *l_8, *l_9, *l_10,
+            *l_11)},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],

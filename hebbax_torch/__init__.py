@@ -5,13 +5,14 @@ Same layout as ``hebbax`` so each module's counterpart is easy to find:
   config/   dataset constants, warmup+StepLR schedule, optimizers, ramps
   data/     2D folder dataset, numpy augmentations, threaded loader; 3D
             NRRD volumes, their augmentations and patch queues
-  hebb/     HebbSpec, the swta and swta_t rules, the SWTA-delta kernel
-            dispatcher, HConv / HConvTranspose, gradient merging
+  hebb/     HebbSpec, the Hebbian rules (swta, hpca, swta_t, hpca_t,
+            contrastive), the SWTA-delta kernel dispatcher, HConv /
+            HConvTranspose, gradient merging
   csrc/     hand-written CUDA kernels (built with nvcc at first use)
   models/   UNet2D, UNetURPC2D, UNetCCT2D, the unsupervised baselines
             (UNetVAE2D, UNetSuperpix2D, DDPMUNet), UNet3D, UNet3DDTC,
-            UNet3DCCT, UNet3DURPC, their blocks, CCT perturbations, the
-            network registry
+            UNet3DCCT, UNet3DURPC, VNet, VNetCCT, VNetDTC, their blocks,
+            CCT perturbations, the network registry
   ops/      losses, threshold-sweep metrics, HD95/ASSD, signed distance
             maps, dropout, EMA, diffusion schedules and losses, superpixel
             pseudo-masks, 3D post-processing

@@ -151,14 +151,20 @@ def new_model(args, cfg, device, hebb=None):
         dtype=model_dtype(args), **stream_generators(args.seed, device))
 
 
+HEBB_SEED_OFFSET = 6        # the contrastive permutations' stream: seed+6
+
+
 def stream_generators(seed, device):
-    """The generators of the networks' own random streams on ``device``:
+    """The generators of the networks' own random streams: on ``device``
     CCT perturbations from seed+2, the VAE latent from seed+3 and the
-    SNN's Poisson spikes from seed+4 (the keyword arguments of
-    :func:`hebbax_torch.models.get_network`)."""
+    SNN's Poisson spikes from seed+4; on the CPU the contrastive rule's
+    batch permutations from seed+6 (the keyword arguments of
+    :func:`hebbax_torch.models.get_network`; seed+5 is the device
+    augmentation's)."""
     return {"perturb_generator": make_generator(seed + 2, device),
             "latent_generator": make_generator(seed + 3, device),
-            "poisson_generator": make_generator(seed + 4, device)}
+            "poisson_generator": make_generator(seed + 4, device),
+            "hebb_generator": make_generator(seed + HEBB_SEED_OFFSET)}
 
 
 def load_snapshot_into(model, state, reinit=()):

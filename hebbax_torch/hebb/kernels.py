@@ -1,16 +1,22 @@
 """SWTA-delta dispatcher and the wrapper of its CUDA kernel
 (``hebbax/hebb/pallas_kernels.py`` ``swta_delta`` / ``swta_delta_pallas``).
 
-:func:`swta_delta` routes by rank, as hebbax's dispatcher does (its
-fused kernel takes only a 4-D kernel), and a 2D delta by where the
-tensors lie:
+:func:`swta_delta` routes by rank, stride and shape.  hebbax's
+dispatcher sends only 2D stride-1 convs to its fused kernel
+(``pallas_kernels.py:164-166``); the port's kernel takes those whose
+output has the input's size, as every 2D forward conv of the networks
+does:
 
-* a 5-D weight (a 3D conv), on any device, goes to the composed rule
-  :func:`rules.swta_conv3d_delta`: no kernel of the port takes it;
-* 2D CUDA tensors go to the hand-written kernel ``csrc/swta_delta.cu``
-  through :data:`SWTA_DELTA`, or raise — there is no fallback and no
-  environment switch;
-* 2D CPU tensors go to the plain version :func:`rules.swta_conv_delta`.
+* a 2D stride-1 conv whose output has its input's size (every forward
+  conv of the 2D networks) goes to the hand-written kernel
+  ``csrc/swta_delta.cu`` through :data:`SWTA_DELTA` for CUDA tensors, or
+  raises — there is no fallback and no environment switch — and to its
+  plain version :func:`rules.swta_conv_delta` for CPU tensors;
+* every other site — a 5-D weight (a 3D conv), a strided conv (VNet's
+  down convs, a swapped k = s = 2 transpose conv), a VALID stride-1 one —
+  goes to the composed rule :func:`rules.swta_wgrad_delta` on any device:
+  no kernel of the port takes it, and K1 assumes stride 1 and a same-size
+  output, so it must never see one.
 
 The wrapper checks device, dtype, contiguity and shape, allocates the
 output and the workspace with ``torch.empty``, launches on the current
@@ -197,12 +203,14 @@ class SwtaDeltaKernel:
 SWTA_DELTA = SwtaDeltaKernel()
 
 
-def swta_delta(w, x, y, k, padding):
-    """SWTA delta of a stride-1 forward conv: the composed rule for a 3D
-    conv; for a 2D conv the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if w.dim() == 5:
-        return rules.swta_conv3d_delta(w, x, y, k, padding)
+def swta_delta(w, x, y, k, padding, stride=1):
+    """SWTA delta of a forward conv: K1 for a 2D stride-1 same-size conv
+    on CUDA tensors, its plain version for one on CPU tensors, the
+    composed rule for every other site on any device."""
+    nd = w.dim() - 2
+    stride, padding = rules._tuple(stride, nd), rules._tuple(padding, nd)
+    if nd != 2 or stride != (1, 1) or x.shape[2:] != y.shape[2:]:
+        return rules.swta_wgrad_delta(w, x, y, k, padding, stride)
     if x.is_cuda:
         return SWTA_DELTA(w.contiguous(), x.contiguous(), y.contiguous(),
                           k, padding)

@@ -8,8 +8,10 @@ layer's path is not excluded, the layer
     per output filter of a conv, per input channel of a transpose conv),
   * on a training forward with alpha != 0 computes the plasticity delta
     under ``torch.no_grad()`` from the RAW weight (the decay term
-    ``r_sum * w`` uses it), the layer input and the output including bias,
-    and adds it to ``self.delta`` (hebbax's ``sow(reduce_fn=add)``);
+    ``r_sum * w`` uses it), the layer input, the output including bias,
+    the bias and, for contrastive, a permutation of the batch
+    (:meth:`HConv.draw_permutation`, hebbax's ``make_rng("hebb")``), and
+    adds it to ``self.delta`` (hebbax's ``sow(reduce_fn=add)``);
     :func:`hebbax_torch.hebb.surgery.pop_deltas` collects and clears them,
   * keeps the parameters of the plain conv, so snapshots load across the
     pretrain -> fine-tune hand-off.
@@ -76,14 +78,21 @@ def _tuple(v, nd):
 
 
 class HConv(nn.Module):
-    """Stride-1 convolution with optional Hebbian plasticity; a tuple
-    ``kernel_size`` of length 3 makes it 3D, an int a square 2D one."""
+    """Convolution with optional Hebbian plasticity; a tuple
+    ``kernel_size`` of length 3 makes it 3D, an int a square 2D one.
+    ``stride`` and ``padding`` are an int for every axis or a tuple.
+
+    A contrastive site draws its batch permutation from
+    ``hebb_generator`` (a CPU ``torch.Generator``, set on every HConv of a
+    network by :func:`set_hebb_generator`), once per training forward, in
+    call order; an instance may replace :meth:`draw_permutation` to
+    inject one."""
 
     transpose = False
 
     def __init__(self, in_channels: int, features: int, kernel_size,
                  padding=0, init_type: str = "kaiming", device=None,
-                 generator=None):
+                 generator=None, stride=1):
         super().__init__()
         if init_type not in INIT_TYPES:
             raise NotImplementedError(
@@ -92,8 +101,9 @@ class HConv(nn.Module):
                                             (tuple, list)) else 2
         self.nd = nd
         self.padding = _tuple(padding, nd)
-        self.stride = (1,) * nd
+        self.stride = _tuple(stride, nd)
         self.spec = None          # set by bind_paths once the path is known
+        self.hebb_generator = None  # set by set_hebb_generator
         self.delta = None
         self.compute_dtype = None   # set by set_compute_dtype
         io = (in_channels, features) if self.transpose else (features,
@@ -108,7 +118,16 @@ class HConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def _apply_conv(self, x, w, bias):
-        return _CONV[self.nd](x, w, bias, padding=self.padding)
+        return _CONV[self.nd](x, w, bias, stride=self.stride,
+                              padding=self.padding)
+
+    def draw_permutation(self, n):
+        """The contrastive rule's permutation of a batch of ``n``, drawn
+        on the CPU from ``hebb_generator``."""
+        if self.hebb_generator is None:
+            raise ValueError("a contrastive HConv needs a hebb_generator "
+                             "(set_hebb_generator)")
+        return torch.randperm(n, generator=self.hebb_generator)
 
     def forward(self, x):
         spec = self.spec
@@ -123,11 +142,16 @@ class HConv(nn.Module):
             y = self._apply_conv(x, w.to(dtype), None) + self.bias.to(
                 dtype).view((-1,) + (1,) * self.nd)
         if spec is not None and self.training and spec.alpha != 0:
+            perm = None
+            if spec.conv_mode(self.transpose) == "contrastive":
+                perm = self.draw_permutation(x.shape[0]).to(x.device)
             with torch.no_grad():
                 d = rules.compute_delta(spec, self.weight.detach(),
                                         x.detach().float(),
                                         y.detach().float(), self.padding,
-                                        self.transpose, self.stride)
+                                        self.transpose, self.stride,
+                                        bias=self.bias.detach().float(),
+                                        perm=perm)
             self.delta = d if self.delta is None else self.delta + d
         return y
 
@@ -142,8 +166,7 @@ class HConvTranspose(HConv):
                  stride=1, init_type: str = "kaiming", device=None,
                  generator=None):
         super().__init__(in_channels, features, kernel_size, 0, init_type,
-                         device, generator)
-        self.stride = _tuple(stride, self.nd)
+                         device, generator, stride)
 
     def _apply_conv(self, x, w, bias):
         return _CONV_TRANSPOSE[self.nd](x, w, bias, stride=self.stride)
@@ -156,6 +179,15 @@ def bind_paths(model: nn.Module, hebb: Optional[HebbSpec]):
     for name, m in model.named_modules():
         if isinstance(m, HConv):
             m.spec = spec_if_active(hebb, tuple(name.split(".")))
+    return model
+
+
+def set_hebb_generator(model: nn.Module, generator):
+    """The CPU generator every HConv of ``model`` draws its contrastive
+    permutation from (hebbax's ``hebb`` rng stream)."""
+    for m in model.modules():
+        if isinstance(m, HConv):
+            m.hebb_generator = generator
     return model
 
 

@@ -2,23 +2,27 @@
 so far: in 2D ``unet``, ``unet_urpc``, ``unet_cct`` and the unsupervised
 baselines ``unet_vae``, ``unet_superpix`` and ``unet_ddpm``; in 3D
 ``unet3d``, ``unet3d_dtc``, ``unet3d_cct``, ``unet3d_urpc``,
-``unet3d_min`` / ``unet3d_cct_min`` (32 initial features) and the
-unsupervised baselines ``unet3d_vae`` and ``unet3d_superpix``; the
-spiking VGG9 ``snn_vgg`` and its non-spiking twin ``ann_vgg``.  (The
+``unet3d_min`` / ``unet3d_cct_min`` (32 initial features), the
+unsupervised baselines ``unet3d_vae`` and ``unet3d_superpix``, and the
+VNet family ``vnet``, ``vnet_cct``, ``vnet_dtc``; the spiking VGG9
+``snn_vgg`` and its non-spiking twin ``ann_vgg``.  (The
 RAD-DINO encoder and decoder are built by their trainer, as in hebbax.)
 
 The folded ``*_s2d`` names are registered on the same classes: their
 parameter trees are identical and the space-to-depth fold is a TPU
 layout, so the CLIs' defaults (``unet_s2d``, ``unet3d_s2d``,
-``unet3d_urpc_s2d``, ...) run the unfolded network here; the baselines
-have no folded name in hebbax either.  ``unet3d_cct_s2d_rc`` is hebbax's
-remat policy for the shared decoder, with unchanged grads: it runs the
-plain ``UNet3DCCT`` (no recomputation) here.  The ``*_batched`` names (one
-4N-batched decode, other training BN numerics) are not registered.
+``unet3d_urpc_s2d``, ``vnet_s2d``, ...) run the unfolded network here;
+the baselines have no folded name in hebbax either.
+``unet3d_cct_s2d_rc`` and ``vnet_cct_s2d_rc`` are hebbax's remat policy
+for the shared decoder, with unchanged grads: they run the plain
+``UNet3DCCT`` / ``VNetCCT`` (no recomputation) here.  The ``*_batched``
+names (one 4N-batched decode, other training BN numerics) are not
+registered.
 """
 
 from typing import Optional
 
+from ..hebb.layers import set_hebb_generator
 from ..hebb.spec import HebbSpec
 from .ddpm import DDPMUNet
 from .unet2d import (UNet2D, UNetCCT2D, UNetSuperpix2D, UNetURPC2D,
@@ -27,6 +31,7 @@ from .snn import ANNVGG, SNNVGG
 from .unet3d import (UNet3D, UNet3DCCT, UNet3DDTC, UNet3DSuperpix,
                      UNet3DVAE)
 from .urpc3d import UNet3DURPC
+from .vnet import VNet, VNetCCT, VNetDTC
 
 _DEEP4 = dict(nd=2, outputs="deep4")
 _CCT = dict(nd=2, outputs="deep4", rngs=("perturb",))
@@ -80,6 +85,13 @@ _REGISTRY = {
     "unet3d_urpc_s2d": (UNet3DURPC, _DEEP4_3D),
     "unet3d_vae": (UNet3DVAE, dict(nd=3, outputs="vae", rngs=("latent",))),
     "unet3d_superpix": (UNet3DSuperpix, dict(nd=3, outputs="superpix")),
+    "vnet": (VNet, dict(nd=3, outputs="single")),
+    "vnet_s2d": (VNet, dict(nd=3, outputs="single")),
+    "vnet_cct": (VNetCCT, _CCT_3D),
+    "vnet_cct_s2d": (VNetCCT, _CCT_3D),
+    "vnet_cct_s2d_rc": (VNetCCT, _CCT_3D),
+    "vnet_dtc": (VNetDTC, _DTC_3D),
+    "vnet_dtc_s2d": (VNetDTC, _DTC_3D),
 }
 
 
@@ -101,11 +113,13 @@ def get_network(name: str, in_channels: int, num_classes: int,
                 init_type: str = "kaiming", hebb: Optional[HebbSpec] = None,
                 device=None, generator=None, dropout_generator=None,
                 perturb_generator=None, latent_generator=None,
-                poisson_generator=None, dtype=None):
+                poisson_generator=None, hebb_generator=None, dtype=None):
     """Build a model module on ``device``; ``perturb_generator`` goes to
     the networks that draw perturbations (the ``perturb`` rng),
     ``latent_generator`` to those that draw a latent (``latent``),
-    ``poisson_generator`` to those that draw spikes (``poisson``).
+    ``poisson_generator`` to those that draw spikes (``poisson``), and
+    ``hebb_generator`` (on the CPU) to every HConv, whose contrastive
+    permutations it draws (the ``hebb`` rng).
     ``dtype`` (None: float32) is the compute dtype, flax's ``dtype=``:
     parameters and BN statistics stay float32."""
     meta = network_meta(name)
@@ -113,10 +127,11 @@ def get_network(name: str, in_channels: int, num_classes: int,
                "poisson": poisson_generator}
     kw = {f"{r}_generator": streams[r] for r in meta["rngs"]}
     factory = _REGISTRY[name][0]
-    return factory(in_channels=in_channels, n_cls=num_classes,
-                   init_type=init_type, hebb=hebb, device=device,
-                   generator=generator, dropout_generator=dropout_generator,
-                   dtype=dtype, **kw)
+    model = factory(in_channels=in_channels, n_cls=num_classes,
+                    init_type=init_type, hebb=hebb, device=device,
+                    generator=generator, dropout_generator=dropout_generator,
+                    dtype=dtype, **kw)
+    return set_hebb_generator(model, hebb_generator)
 
 
 def primary_logits(name: str, outputs):

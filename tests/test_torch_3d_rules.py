@@ -7,7 +7,8 @@ transpose-conv weights.  Cases: swta on a 3x3x3 pad-1 and a 1x1x1 conv,
 through the dispatcher (a 5-D weight goes to the composed rule on any
 device, and no kernel is launched); swta_t on a k = s = 2 transpose conv
 (every site of ``unet3d``) and on a k = 3, s = 2 one; the transpose
-weight norm (per input channel).
+weight norm (per input channel).  ``tests/test_torch_hebb_rules.py``
+holds the other rules.
 
 Tolerance: max|err| <= 1e-5 * max|hebbax delta| — float32 sums over up to
 2*8^3 voxels of products, taken by XLA and oneDNN in other orders.
@@ -56,8 +57,8 @@ def test_swta_conv3d_matches(n, s, i, o, k):
     before = kernels.SWTA_DELTA.launches
     got = kernels.swta_delta(wt, xt, yt, K, (p, p, p))
     assert kernels.SWTA_DELTA.launches == before
-    assert torch.equal(got, trules.swta_conv3d_delta(wt, xt, yt, K,
-                                                     (p, p, p)))
+    assert torch.equal(got, trules.swta_wgrad_delta(wt, xt, yt, K,
+                                                    (p, p, p)))
     _close(np.transpose(got.numpy(), (2, 3, 4, 1, 0)), ref)
 
 
@@ -90,13 +91,19 @@ def test_compute_delta_routes_transpose_convs_to_swta_t():
     spec = HebbSpec(mode="swta_t", k=K)
     got = trules.compute_delta(spec, w, x, y, (0, 0, 0), True, (2, 2, 2))
     assert torch.equal(got, trules.swta_t_delta(w, x, y, K, (2, 2, 2)))
-    for mode in ("swta", "hpca_t", "contrastive"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            trules.compute_delta(HebbSpec(mode=mode), w, x, y, (0, 0, 0),
-                                 True, (2, 2, 2))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        trules.compute_delta(HebbSpec(mode="hpca"), w.transpose(0, 1), y,
-                             y, (1, 1, 1))
+    # the other modes route to their rules (tests/test_torch_hebb_rules.py
+    # holds each against hebbax); only patchwise=False raises
+    assert torch.equal(
+        trules.compute_delta(HebbSpec(mode="hpca_t"), w, x, y, (0, 0, 0),
+                             True, (2, 2, 2)),
+        trules.hpca_t_delta(w, x, y, (2, 2, 2), chunk=32))
+    assert torch.equal(
+        trules.compute_delta(HebbSpec(mode="swta", k=K), w, x, y,
+                             (0, 0, 0), True, (2, 2, 2)),
+        trules.swta_wgrad_delta(w, y, x, K, 0, (2, 2, 2)))
+    with pytest.raises(NotImplementedError, match="patchwise"):
+        trules.compute_delta(HebbSpec(mode="swta_t", patchwise=False), w, x,
+                             y, (0, 0, 0), True, (2, 2, 2))
 
 
 def test_transpose_weight_norm_is_per_input_channel():

@@ -216,3 +216,48 @@ def test_cuda_kernel_unet_sites(cuda_device):
               sorted({(i, o, k) for i, o, k, _ in _UNET})]
     for shape in shapes + [(2, 8, 8, 16, 384, 3)]:
         _check_on_card(shape, cuda_device, seed=4)
+
+
+def test_cpu_dispatch_sends_strided_sites_to_the_composed_rule():
+    """A strided 2D site (VNet-style k = s = 2, or a swapped transpose
+    conv) and a VALID stride-1 one never take K1's path: on the CPU they
+    go to the composed rule, not to the plain version."""
+    rng = np.random.RandomState(5)
+    w = torch.from_numpy(rng.randn(4, 3, 2, 2).astype(np.float32))
+    x = torch.from_numpy(rng.randn(2, 3, 8, 8).astype(np.float32))
+    y = F.conv2d(x, w, stride=2)
+    before = kernels.SWTA_DELTA.launches
+    got = kernels.swta_delta(w, x, y, 50.0, (0, 0), (2, 2))
+    assert kernels.SWTA_DELTA.launches == before
+    assert torch.equal(got, trules.swta_wgrad_delta(w, x, y, 50.0, 0, 2))
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_keeps_strided_sites_off_the_kernel(cuda_device):
+    """On the card a strided 2D site goes to the composed rule and leaves
+    K1's launch count as it was; a stride-1 same-size site still launches
+    K1 once."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(6)
+    for k, s, pad in ((2, 2, 0), (3, 2, 1), (3, 1, 0)):
+        w = torch.from_numpy(rng.randn(8, 4, k, k).astype(np.float32)
+                             ).to(cuda_device)
+        x = torch.from_numpy(rng.randn(2, 4, 16, 16).astype(np.float32)
+                             ).to(cuda_device)
+        y = F.conv2d(x, w, stride=s, padding=pad)
+        before = kernels.SWTA_DELTA.launches
+        got = kernels.swta_delta(w, x, y, 50.0, (pad, pad), (s, s))
+        torch.cuda.synchronize()
+        assert kernels.SWTA_DELTA.launches == before, (k, s, pad)
+        # the composed rule on the card against itself on the CPU (cuDNN's
+        # weight gradient may sum in another order than oneDNN's)
+        cpu = trules.swta_wgrad_delta(w.cpu(), x.cpu(), y.cpu(), 50.0, pad,
+                                      s)
+        scale = float(cpu.abs().max())
+        assert float((got.cpu() - cpu).abs().max()) <= 1e-4 * scale
+    w, x, y = _inputs((2, 8, 8, 4, 6, 3), seed=7, device=cuda_device)
+    before = kernels.SWTA_DELTA.launches
+    kernels.swta_delta(w, x, y, 50.0, (1, 1), 1)
+    torch.cuda.synchronize()
+    assert kernels.SWTA_DELTA.launches == before + 1
