@@ -180,12 +180,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and changed after (under contrastive, unless every permutation drawn
    was the identity), steady and profiled steps and peak memory; one
    ``rules_vnet_path`` line carries them;
-12. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
-   urpc_pretrain, cct_pretrain and the paths of 6 to 11), the card's
+12. data parallelism (``hebbax_torch.parallel``, hebbax's global-batch
+   semantics): (ad) one process on the card, then 2 ranks spawned on the
+   same card over gloo (a card holds one NCCL rank) with half of every
+   batch each, run two steps of the ``unet`` swta_t pretraining step at
+   batch 32, 128x128 (SGD at a constant lr 0.1), one EM and one CPS step
+   with the sweep's flags, one ``unet3d`` fine-tune step at batch 2,
+   96x96x80 (its fresh model's slider on a val volume first) and
+   ``test_3d --dp_devices 2`` on the single process's snapshot: the ranks
+   hold the same state, and the single process's losses (rtol 1e-5),
+   merged deltas (TOL of max|delta|; step 2's 1e-3), states (parameters
+   and BN statistics within 1e-3 of the update, no tensor beyond 0.1 of
+   its own), slider logits (1e-5 of max|logit|) and test Dice / Jaccard
+   (1e-3); K1 22 launches per rank per pretraining step, 0 elsewhere;
+   which collectives gloo runs on CUDA tensors; step times of both; (ae)
+   one pretraining step in a
+   world-size-1 NCCL group equal to the plain step to the bit (cuDNN
+   deterministic), with one NCCL all-reduce; one ``data_parallel_path``
+   line carries them;
+13. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
+   urpc_pretrain, cct_pretrain and the paths of 6 to 12), the card's
    name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
 and writes only under ``build/`` beside this file.
+
+    python3 chip_smoke.py --dp-cards
+
+on a machine with N >= 2 cards runs phase 12's (ad) instead over N NCCL
+ranks, one per card ((af): a batch of 32 over N, the 3D batch N), held
+to one process on card 0 with the same gates, and prints one
+``data_parallel_cards_path`` line before the card's name and the last
+line.
 """
 
 import json
@@ -2773,6 +2799,511 @@ def phase_rules(items, images, data_root, device="0"):
     return launches, record
 
 
+# -- phase 12: data parallelism ----------------------------------------------
+
+DP_RANKS = 2
+DP_LR = 0.1
+DP_STEPS = 2
+DP_TIMED = 5
+DP_SGD = ["--optimizer", "sgd", "-l", str(DP_LR), "--momentum", "0",
+          "--wd", "-30"]
+DP_TIMEOUT_S = 300
+# the dp state's miss of the single process's, as a share of the update
+# (hebbax's own multichip check allows 1e-2 for the delta merge); no
+# tensor may miss by 0.1 of its own update (+1e-5: a conv bias before a
+# batch norm has a gradient of rounding noise alone)
+DP_STATE_TOL = 1e-3
+DP_DEADLINE_S = 900
+CUDA_COLLECTIVES = ("all_reduce", "broadcast", "all_gather",
+                 "reduce_scatter_tensor", "all_to_all_single")
+
+
+def _cpu_state(model):
+    return {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+
+
+def _sampled_state(model):
+    """Every 97th element of the model's concatenated state (the 3D
+    network's full state is 360 MB a copy)."""
+    import torch
+    return torch.cat([v.detach().float().flatten().cpu() for v in
+                      model.state_dict().values()])[::97]
+
+
+def _constant_lr(state):
+    for key in ("schedule", "schedule1", "schedule2"):
+        if getattr(state, key, None) is not None:
+            setattr(state, key, lambda count: DP_LR)
+
+
+def _timed(run, n, sync):
+    times = []
+    for _ in range(n):
+        sync()
+        t0 = time.perf_counter()
+        run()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def cuda_collectives(card):
+    """Which collectives the process group's backend runs on CUDA
+    tensors of ``card`` (the rest raise): every rank calls each, in the
+    same order."""
+    import torch
+    import torch.distributed as dist
+    from hebbax_torch import parallel
+
+    n = parallel.world_size()
+    x = torch.ones(2 * n, device=card)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(n)], x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2, device=card), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x)}
+    table = {"backend": dist.get_backend()}
+    for op in CUDA_COLLECTIVES:
+        try:
+            calls[op]()
+            torch.cuda.synchronize(card)
+            table[op] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as exc:
+            table[op] = str(exc).splitlines()[0][:120]
+    return table
+
+
+def dp_job(items, data_root, root, snap_exp, device="0", batch_3d=2):
+    """Phase 12's work in one process: the single process (``snap_exp``
+    None) or one of the ranks sharing the card.  (ad) two steps of the
+    ``unet`` swta_t pretraining step at batch 32 (the losses, the merged
+    deltas, the state after, K1's launches), one EM and one CPS step with
+    the sweep's flags, one ``unet3d`` fine-tune step at batch 2 (the slider
+    of its fresh model on a val volume first), then ``test_3d`` on the
+    single process's 3D snapshot (``--dp_devices`` the world size); SGD at
+    a constant lr, so every step moves the parameters.  ``device`` 'rank'
+    puts each rank on its own card; ``batch_3d`` is the 3D batch and the
+    slider's."""
+    import torch
+    from hebbax_torch import parallel
+    from hebbax_torch.cli import common, common3d
+    from hebbax_torch.cli import pretrain_hebbian_unsup_2d as pretrain
+    from hebbax_torch.cli import test_3d, train_semi_2d, train_sup_3d
+    from hebbax_torch.data.augment3d import znormalize
+    from hebbax_torch.data.volumes3d import VolumeDataset3D
+    from hebbax_torch.engine import steps as steps_mod
+    from hebbax_torch.engine.sliding import slide_window_inference_device
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.models import primary_logits
+
+    if device == "rank":
+        device = str(parallel.rank())
+    card = common.resolve_device(device)
+
+    def sync():
+        if card.type == "cuda":
+            torch.cuda.synchronize(card)
+
+    world = parallel.world_size()
+    rec = {"rank": parallel.rank(), "world": world}
+    base = ["--device", device, "--path_dataset", "synthetic/GlaS",
+            "--dataset_name", "GlaS", "--path_root_exp", root,
+            "-b", str(BATCH), "-e", "1", "-w", "1", "--num_workers", "4",
+            "--debug", ""]
+
+    # (ad) the swta_t pretraining step
+    args = pretrain.add_args(common.base_parser_2d()).parse_args(
+        base + ["-n", "unet", "--exclude", "out_conv", "--hebb_mode",
+                "swta_t", "--hebb_inv_temp", str(int(K_TEMP))] + DP_SGD)
+    trainer = pretrain.build(args, make_loaders(items, args, 100))
+    _constant_lr(trainer.state)
+    it = iter(trainer.loaders["train"])
+    batches = [trainer.prep(next(it)) for _ in range(DP_STEPS)]
+    rec["rows"] = int(batches[0]["image"].shape[0])
+    merged = []
+    sum_dict = steps_mod.sum_dict
+
+    def recording(deltas):
+        out = sum_dict(deltas)
+        merged.append({k: v.detach().cpu().clone() for k, v in out.items()})
+        return out
+
+    before = _cpu_state(trainer.state.model)
+    steps_mod.sum_dict = recording
+    kernels.SWTA_DELTA.launches = 0
+    losses = []
+    try:
+        for b in batches:
+            trainer.state, out = trainer.train_step(trainer.state, b)
+            losses.append(float(out["loss"]))
+    finally:
+        steps_mod.sum_dict = sum_dict
+    rec["pretrain"] = {
+        "losses": losses, "deltas": merged, "before": before,
+        "state": _cpu_state(trainer.state.model),
+        "launches": kernels.SWTA_DELTA.launches,
+        "ms": _timed(lambda: trainer.train_step(trainer.state, batches[-1]),
+                     DP_TIMED, sync)}
+    del trainer, batches
+    release()
+
+    # one EM and one CPS step, the sweep's flags at a constant lr
+    for algo in ("em", "cps"):
+        args = train_semi_2d.add_args(common.base_parser_2d(), algo)\
+            .parse_args(base + ["-n", "unet", "--regime", "50", "--loss",
+                                "dice", "--unsup_weight", "5"] + DP_SGD)
+        trainer = train_semi_2d.build(args, algo,
+                                      make_semi_loaders(items, args, 50))
+        _constant_lr(trainer.state)
+        unsup = trainer.prep(trainer.next_unsup())
+        sup = trainer.prep(next(iter(trainer.loaders["train_sup"])))
+        w = trainer.epoch_weight(0)
+        models = ([trainer.state.model1, trainer.state.model2]
+                  if algo == "cps" else [trainer.state.model])
+        before = [_cpu_state(m) for m in models]
+        kernels.SWTA_DELTA.launches = 0
+        trainer.state, out = trainer.call_step(sup, unsup, w, 0)
+
+        def again(trainer=trainer, sup=sup, unsup=unsup, w=w):
+            trainer.state, _ = trainer.call_step(sup, unsup, w, 0)
+        rec[algo] = {
+            "losses": [float(out[k]) for k in ("loss", "loss_sup",
+                                               "loss_unsup")],
+            "before": before, "state": [_cpu_state(m) for m in models],
+            "launches": kernels.SWTA_DELTA.launches,
+            "ms": _timed(again, DP_TIMED, sync)}
+        del trainer, models, sup, unsup
+        release()
+
+    # the unet3d fine-tune step at batch 2, the slider of its fresh model
+    args = train_sup_3d.add_args(common3d.base_parser_3d()).parse_args(
+        ["--device", device, "--path_dataset", data_root, "--dataset_name",
+         "Atrial", "--path_root_exp", root, "-n", NET_3D, "-b",
+         str(batch_3d), "-e", "1", "-w", "1",
+         "--patch_size", ",".join(str(p) for p in PATCH),
+         "--num_workers", "4", "--regime", "50",
+         # the regime's 2 labelled volumes give one batch of batch_3d
+         "--samples_per_volume_train", str(max(1, batch_3d // 2)),
+         "--samples_per_volume_val", "1"] + DP_SGD)
+    trainer = train_sup_3d.build(args)
+    _constant_lr(trainer.state)
+    model = trainer.state.model
+    model.eval()
+    vol = VolumeDataset3D(os.path.join(data_root, "val"), "image",
+                          split="test", sup=False).load_raw(0)["image"]
+    kernels.SWTA_DELTA.launches = 0
+    t0 = time.perf_counter()
+    logits = slide_window_inference_device(
+        lambda p: primary_logits(NET_3D, model(p)),
+        znormalize(vol, "mean"), PATCH, OVERLAP, 2, batch_size=batch_3d,
+        device=card)
+    sync()
+    rec["slider"] = {"logits": logits.cpu().numpy(),
+                     "s": time.perf_counter() - t0}
+    batch = trainer.prep(next(iter(trainer.loaders["train"])))
+    before = _sampled_state(model)
+    trainer.state, out = trainer.train_step(trainer.state, batch)
+    rec["sup_3d"] = {
+        "losses": [float(out["loss"])], "before": before,
+        "state": _sampled_state(model),
+        "launches": kernels.SWTA_DELTA.launches,
+        "ms": _timed(lambda: trainer.train_step(trainer.state, batch),
+                     DP_TIMED, sync)}
+    if snap_exp is None:
+        trainer._save_last(0.5)
+        snap_exp = trainer.paths.run
+        rec["snap_exp"] = snap_exp
+    del trainer, model, batch
+    release()
+
+    # test_3d --dp_devices <world> on the single process's snapshot
+    kernels.SWTA_DELTA.launches = 0
+    res = test_3d.main(
+        ["--device", device, "--path_exp", snap_exp, "--path_dataset",
+         data_root, "-n", NET_3D, "--best", "last", "-b", str(batch_3d),
+         "--patch_size", ",".join(str(p) for p in PATCH),
+         "--patch_overlap", ",".join(str(p) for p in OVERLAP),
+         "--dp_devices", str(world)])
+    rec["test_3d"] = {"metrics": res, "launches": kernels.SWTA_DELTA.launches}
+    if world > 1 and card.type == "cuda":
+        rec["cuda_collectives"] = cuda_collectives(card)
+    return rec
+
+
+def nccl_job(items, root, device="0"):
+    """(ae) one ``unet`` swta_t pretraining step (cuDNN deterministic), in
+    a world-size-1 NCCL group or in the plain process: the loss and the
+    state after it; in the group also one NCCL all-reduce."""
+    import torch
+    import torch.distributed as dist
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import pretrain_hebbian_unsup_2d as pretrain
+    from hebbax_torch.hebb import kernels
+
+    card = common.resolve_device(device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        args = pretrain.add_args(common.base_parser_2d()).parse_args(
+            ["--device", device, "--path_dataset", "synthetic/GlaS",
+             "--dataset_name", "GlaS", "--path_root_exp", root,
+             "-b", str(BATCH), "-e", "1", "-w", "1", "--num_workers", "4",
+             "--debug", "", "-n", "unet", "--exclude", "out_conv",
+             "--hebb_mode", "swta_t", "--hebb_inv_temp", str(int(K_TEMP))]
+            + DP_SGD)
+        trainer = pretrain.build(args, make_loaders(items, args, 100))
+        _constant_lr(trainer.state)
+        batch = trainer.prep(next(iter(trainer.loaders["train"])))
+        kernels.SWTA_DELTA.launches = 0
+        trainer.state, out = trainer.train_step(trainer.state, batch)
+        rec = {"loss": float(out["loss"]),
+               "state": _cpu_state(trainer.state.model),
+               "launches": kernels.SWTA_DELTA.launches}
+        if dist.is_initialized():
+            t = torch.full((4,), 3.0, device=card)
+            dist.all_reduce(t)
+            rec["backend"] = dist.get_backend()
+            rec["all_reduce"] = t.cpu().tolist()
+        return rec
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _state_miss(got, ref, before):
+    """The dp run's miss of the single process's state as a share of the
+    update the single process made (L2 norms): (over every tensor
+    together, {tensor: (miss, update)} of the three worst tensors by
+    miss / (update + 1e-6))."""
+    import torch
+    per, total_miss, total_upd = {}, 0.0, 0.0
+    for k, r in ref.items():
+        if not torch.is_floating_point(r):
+            continue
+        upd = float(torch.linalg.vector_norm((r - before[k]).double()))
+        miss = float(torch.linalg.vector_norm((got[k] - r).double()))
+        per[k] = (miss, upd)
+        total_miss += miss ** 2
+        total_upd += upd ** 2
+    worst = sorted(per, key=lambda k: -per[k][0] / (per[k][1] + 1e-6))[:3]
+    return (total_miss ** 0.5 / max(total_upd ** 0.5, 1e-30),
+            {k: per[k] for k in worst})
+
+
+def check_dp(ref, ranks, on_card, tag="(ad)"):
+    """:func:`dp_job`'s results on ``ranks`` held against the single
+    process's ``ref`` (the checks of :func:`phase_dp`); returns the
+    errors by path, the merged deltas' misses by step and the slider's."""
+    import torch
+
+    n = len(ranks)
+    got = ranks[0]
+    check([r["rows"] for r in ranks] == [BATCH // n] * n,
+          f"{tag} rows per rank {[r['rows'] for r in ranks]}")
+    errs = {}
+    for path in ("pretrain", "em", "cps", "sup_3d"):
+        r_ref = ref[path]
+        for r in ranks:
+            check(np.allclose(r[path]["losses"], r_ref["losses"], rtol=1e-5,
+                              atol=0),
+                  f"{tag} {path} rank {r['rank']} losses "
+                  f"{r[path]['losses']} vs {r_ref['losses']}")
+        states = ([(got[path]["state"], r_ref["state"], r_ref["before"])]
+                  if path in ("pretrain", "sup_3d") else
+                  list(zip(got[path]["state"], r_ref["state"],
+                           r_ref["before"])))
+        worst, tensors = 0.0, {}
+        for g, r, b in states:
+            if not isinstance(r, dict):
+                g, r, b = {"s": g}, {"s": r}, {"s": b}
+            share, top = _state_miss(g, r, b)
+            worst = max(worst, share)
+            tensors.update(top)
+        log(f"{tag} {path}: the dp state misses the single process's by "
+            f"{worst:.3e} of the update; worst tensors (miss, update) "
+            f"{tensors}")
+        check(worst <= DP_STATE_TOL,
+              f"{tag} {path}: the dp state misses the single process's by "
+              f"{worst:.3e} of the update")
+        check(all(m <= 0.1 * u + 1e-5 for m, u in tensors.values()),
+              f"{tag} {path}: a tensor misses by more than 0.1 of its "
+              f"update: {tensors}")
+        errs[path] = {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(
+            got[path]["losses"], r_ref["losses"])),
+            "state_miss_of_update": worst}
+        for r in ranks[1:]:       # every rank holds rank 0's state
+            a, b = got[path]["state"], r[path]["state"]
+            pairs = ([(a, b)] if not isinstance(a, list)
+                     else list(zip(a, b)))
+            check(all(torch.equal(x[k], y[k]) for x, y in pairs
+                      for k in x) if isinstance(pairs[0][0], dict)
+                  else all(torch.equal(x, y) for x, y in pairs),
+                  f"{tag} {path}: rank {r['rank']}'s state differs from "
+                  f"rank 0's")
+    # step 1's deltas at K1's tolerance; step 2's come from step 1's
+    # states, which may differ by DP_STATE_TOL of its update
+    delta_err = []
+    for i, (step_g, step_r) in enumerate(zip(got["pretrain"]["deltas"],
+                                             ref["pretrain"]["deltas"])):
+        check(set(step_g) == set(step_r) and len(step_r) == 22,
+              f"{tag} merged deltas at {sorted(step_g)}")
+        delta_err.append(max(
+            float((step_g[k] - v).abs().max()) / (float(v.abs().max())
+                                                  or 1.0)
+            for k, v in step_r.items()))
+        gate = TOL if i == 0 else DP_STATE_TOL
+        check(delta_err[i] <= gate,
+              f"{tag} step {i + 1}'s merged deltas miss by "
+              f"{delta_err[i]:.3e} of max|delta|")
+    for r in ranks:
+        if on_card:
+            check(r["pretrain"]["launches"] == 22 * DP_STEPS,
+                  f"{tag} rank {r['rank']} launched K1 "
+                  f"{r['pretrain']['launches']} times, expected 22 x "
+                  f"{DP_STEPS}")
+        for path in ("em", "cps", "sup_3d"):
+            check(r[path]["launches"] == 0,
+                  f"{tag} {path} rank {r['rank']} launched K1")
+    lg, lr_ = got["slider"]["logits"], ref["slider"]["logits"]
+    slider_err = float(np.abs(lg - lr_).max() / max(np.abs(lr_).max(), 1.0))
+    check(slider_err <= 1e-5, f"{tag} dp slider misses the plain one by "
+                              f"{slider_err:.3e}")
+    m_got, m_ref = got["test_3d"]["metrics"], ref["test_3d"]["metrics"]
+    check(all(r["test_3d"]["metrics"] is None for r in ranks[1:]),
+          f"{tag} test_3d: a rank other than 0 returned metrics")
+    check(abs(m_got["dice"] - m_ref["dice"]) <= 1e-3
+          and abs(m_got["jaccard"] - m_ref["jaccard"]) <= 1e-3,
+          f"{tag} test_3d --dp_devices {n} {m_got} vs plain {m_ref}")
+    loss_rel = {k: v["loss_rel"] for k, v in errs.items()}
+    miss = {k: v["state_miss_of_update"] for k, v in errs.items()}
+    log(f"{tag} {n} ranks vs one process: losses rel {loss_rel}, state "
+        f"miss / update {miss}, merged deltas by step {delta_err} of "
+        f"max|delta|, slider {slider_err:.3e}, K1 launches per rank "
+        f"{[r['pretrain']['launches'] for r in ranks]} in {DP_STEPS} steps")
+    return errs, delta_err, slider_err
+
+
+def dp_record(ref, ranks, errs, delta_err, slider_err, seconds):
+    paths = ("pretrain", "em", "cps", "sup_3d")
+    return {
+        "ranks": len(ranks), "errors": errs, "delta_max_rel": delta_err,
+        "slider_max_rel": slider_err,
+        "step_ms": {p: {"single": ref[p]["ms"],
+                        "ranks": [r[p]["ms"] for r in ranks]}
+                    for p in paths},
+        "slider_s": {"single": ref["slider"]["s"],
+                     "ranks": [r["slider"]["s"] for r in ranks]},
+        "test_3d": {"single": ref["test_3d"]["metrics"],
+                    "dp": ranks[0]["test_3d"]["metrics"]},
+        "seconds": seconds}
+
+
+def phase_dp(items, data_root, device="0"):
+    """Phase 12: data parallelism.  :func:`dp_job` in this process, then
+    in 2 spawned ranks sharing the card over gloo (a card cannot hold two
+    NCCL ranks), each with its half of every batch; the ranks must agree
+    with each other and with the single process (:func:`check_dp`):
+    losses within 1e-5, the merged deltas within 1e-4 of max|delta| (K1's
+    tolerance; the second step's, which start from the first step's
+    states, within 1e-3), the state after the steps (parameters and BN
+    statistics) within 1e-3 of the update over all tensors (L2) and no
+    tensor beyond 0.1 of its own (:data:`DP_STATE_TOL`), K1 22 launches
+    per rank per (ad) step, the dp slider's logits within 1e-5 of
+    max|logit| of the plain one, and ``test_3d --dp_devices 2``'s Dice
+    and Jaccard within 1e-3 of the plain test's.  (ae) one NCCL
+    world-size-1 step equal to the plain step to the bit.  Returns the
+    launches by path and the ``data_parallel_path`` record."""
+    import torch
+    from hebbax_torch import parallel
+
+    root = os.path.join(RUN_DIR, "dp")
+    t0 = time.perf_counter()
+    ref = dp_job(items, data_root, os.path.join(root, "single"), None,
+                 device)
+    t_single = time.perf_counter() - t0
+    release()
+    t0 = time.perf_counter()
+    on_card = device != "cpu"
+    ranks = parallel.run_ranks(
+        dp_job, DP_RANKS,
+        (items, data_root, os.path.join(root, "ranks"), ref["snap_exp"],
+         device), device_type="cuda" if on_card else "cpu",
+        backend="gloo", timeout=DP_TIMEOUT_S, deadline=DP_DEADLINE_S)
+    t_ranks = time.perf_counter() - t0
+    errs, delta_err, slider_err = check_dp(ref, ranks, on_card)
+    got = ranks[0]
+    log(f"(ad) collectives on CUDA tensors: {got.get('cuda_collectives')}")
+
+    # (ae) NCCL at world size 1
+    plain = nccl_job(items, os.path.join(root, "plain"), device)
+    nccl = None
+    if on_card:
+        nccl = parallel.run_ranks(
+            nccl_job, 1, (items, os.path.join(root, "nccl"), device),
+            device_type="cuda", backend="nccl", timeout=DP_TIMEOUT_S,
+            deadline=DP_DEADLINE_S)[0]
+        check(nccl["backend"] == "nccl" and nccl["all_reduce"] == [3.0] * 4,
+              f"(ae) NCCL group {nccl.get('backend')} "
+              f"{nccl.get('all_reduce')}")
+        check(nccl["loss"] == plain["loss"] and all(
+            torch.equal(nccl["state"][k], v)
+            for k, v in plain["state"].items()),
+            "(ae) the NCCL world-size-1 step is not the plain step")
+        check(nccl["launches"] == plain["launches"] == 22,
+              f"(ae) K1 launches {nccl['launches']} / {plain['launches']}")
+    launches = {
+        "dp_pretrain": got["pretrain"]["launches"],
+        "dp_pretrain_rank1": ranks[1]["pretrain"]["launches"],
+        "dp_em": got["em"]["launches"], "dp_cps": got["cps"]["launches"],
+        "dp_sup_3d": got["sup_3d"]["launches"],
+        "dp_test_3d": got["test_3d"]["launches"],
+        "dp_nccl_ws1": None if nccl is None else nccl["launches"]}
+    record = dp_record(ref, ranks, errs, delta_err, slider_err,
+                       {"single": t_single, "ranks": t_ranks})
+    record.update(backend="gloo, ranks sharing one card", launches=launches,
+                  cuda_collectives=got.get("cuda_collectives"),
+                  nccl_ws1_bit_equal=nccl is not None)
+    return launches, record
+
+
+def phase_dp_cards(items, data_root):
+    """``python3 chip_smoke.py --dp-cards`` on a machine with N >= 2
+    cards: :func:`dp_job` in this process on card 0, then on N NCCL ranks,
+    one per card (a batch of 32 over N, the 3D batch N), held to it as in
+    :func:`phase_dp` (:func:`check_dp`).  Returns the
+    ``data_parallel_cards_path`` record."""
+    import torch
+    from hebbax_torch import parallel
+
+    n = torch.cuda.device_count()
+    check(n >= 2, f"--dp-cards needs 2 or more cards, found {n}")
+    root = os.path.join(RUN_DIR, "dp_cards")
+    t0 = time.perf_counter()
+    ref = dp_job(items, data_root, os.path.join(root, "single"), None, "0",
+                 batch_3d=n)
+    t_single = time.perf_counter() - t0
+    release()
+    t0 = time.perf_counter()
+    ranks = parallel.run_ranks(
+        dp_job, n, (items, data_root, os.path.join(root, "ranks"),
+                    ref["snap_exp"], "rank", n),
+        device_type="cuda", backend="nccl", timeout=DP_TIMEOUT_S,
+        deadline=DP_DEADLINE_S)
+    t_ranks = time.perf_counter() - t0
+    errs, delta_err, slider_err = check_dp(ranks=ranks, ref=ref,
+                                           on_card=True, tag="(af)")
+    record = dp_record(ref, ranks, errs, delta_err, slider_err,
+                       {"single": t_single, "ranks": t_ranks})
+    record.update(backend="nccl, one rank per card",
+                  launches_per_rank=[r["pretrain"]["launches"]
+                                     for r in ranks],
+                  cuda_collectives=ranks[0].get("cuda_collectives"))
+    return record
+
 def profile_summary(profiled):
     return {k: {"device_ms": v["device_ms"], "busy_share": v["busy_share"],
                 "groups_ms": v["groups_ms"], "top_ms": v["top_ms"][:3]}
@@ -2795,6 +3326,7 @@ def main():
 
     device = resolve_device("0")          # TF32 off for cuDNN and matmul
     torch.manual_seed(0)
+    cards = sys.argv[1:] == ["--dp-cards"]
 
     t0 = time.perf_counter()
     built = build.build()
@@ -2804,6 +3336,13 @@ def main():
         log(f"--- nvcc {name} ({info['seconds']:.2f} s)\n{info['log']}")
 
     items = synth_items(N_TRAIN, N_VAL, SIZE)
+    if cards:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+        data_root = synth_volumes(os.path.join(RUN_DIR, "data3d", "Atrial"),
+                                  N_TRAIN_3D, N_VAL_3D, VOLUME)
+        log("data_parallel_cards_path " + json.dumps(
+            phase_dp_cards(items, data_root)))
+        return finish(device)
     from hebbax_torch.config.datasets import dataset_cfg, input_stats
     from hebbax_torch.data.augment2d import normalize
     mean, std = input_stats(dataset_cfg("GlaS"), "image")
@@ -2877,6 +3416,11 @@ def main():
     log("rules_vnet_path " + json.dumps(record_11))
     lap(11)
 
+    l_12, record_12 = phase_dp(items, data_root)
+    launches.update(l_12)
+    log("data_parallel_path " + json.dumps(record_12))
+    lap(12)
+
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -2893,7 +3437,7 @@ def main():
             "superpix_pretrain", "superdiff_pretrain", "em_vae",
             "em_superpix", "test_em_vae", "test_em_superpix",
             "pretrain_3d", "sup_3d", "test_3d", *l_8, *l_9, *l_10,
-            *l_11)},
+            *l_11, *l_12)},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -2909,6 +3453,12 @@ def main():
         "shapes": [r["shape"] for r in rows],
     }]}
     print(json.dumps(kernels_line), flush=True)
+    return finish(device)
+
+
+def finish(device):
+    """The card's name and power limit, then the last line."""
+    import torch
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", f"--id={device.index or 0}"],

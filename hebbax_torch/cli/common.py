@@ -6,6 +6,11 @@ with the pretrain -> fine-tune hand-off, and the optimizer/schedule stack.
 ``cpu``.  Without CUDA an entry point raises unless ``cpu`` was asked for.
 On the card TF32 is turned off for convolutions and matmuls, so the card
 computes the float32 that the parity tests check.
+
+``--dp_devices N`` runs a trainer data-parallel with hebbax's global-batch
+semantics (:mod:`hebbax_torch.parallel`): :func:`train` starts N ranks
+(NCCL on cards 0..N-1, or N gloo ranks with ``--device cpu``), each
+building the trainer on its own card.
 """
 
 import argparse
@@ -13,6 +18,7 @@ import os
 
 import torch
 
+from .. import parallel
 from ..config.datasets import input_stats
 from ..config.schedules import WarmupStepLR, make_optimizer
 from ..data import Loader, SegDataset2D
@@ -50,7 +56,8 @@ def base_parser_2d(defaults=None):
     p.add_argument("--init_weights", default="kaiming", type=str)
     p.add_argument("--num_workers", default=8, type=int)
     p.add_argument("--dp_devices", default=1, type=int,
-                   help="data-parallel devices (only 1 is ported)")
+                   help="data-parallel ranks: N cards (0 = every visible "
+                        "card), or N CPU ranks with --device cpu")
     p.add_argument("--profile_dir", default=None, type=str,
                    help="trace epoch 1 with torch.profiler into this dir")
     p.add_argument("--dtype", default="float32", type=str,
@@ -68,10 +75,26 @@ def base_parser_2d(defaults=None):
 
 
 def check_ported(args):
-    """Raise NotImplementedError for flags whose path is not ported: only
-    data parallelism (``--dp_devices != 1``) is left."""
+    """Raise on a flag this machine cannot run: ``--dp_devices`` above the
+    visible cards (or 0 with ``--device cpu``), naming both numbers
+    (:func:`hebbax_torch.parallel.resolve_world`).  Every flag of the
+    trainers is ported."""
     if getattr(args, "dp_devices", 1) != 1:
-        raise NotImplementedError("--dp_devices != 1 is not ported yet")
+        parallel.resolve_world(args.dp_devices, args.device)
+
+
+def _build_and_run(args, build, build_args):
+    return build(args, *build_args).run()
+
+
+def train(build, args, *build_args, **launch_kw):
+    """``build(args, *build_args).run()`` under ``--dp_devices``
+    (:func:`hebbax_torch.parallel.launch`: N spawned ranks, or the
+    caller's process group); returns rank 0's result.  ``launch_kw``:
+    the process group's ``timeout`` and the ``deadline`` (seconds) after
+    which a spawned run's ranks are killed."""
+    return parallel.launch(_build_and_run, args, build, build_args,
+                           **launch_kw)
 
 
 def model_dtype(args):

@@ -4,9 +4,8 @@ fine-tune hand-off.
 
 As in 2D, ``--device`` takes ``0`` (``cuda:0``), another card index, or
 ``cpu``, and an entry point raises without CUDA unless ``cpu`` was asked
-for; ``--dtype bfloat16``, ``--resume`` and ``--profile_dir`` are
-hebbax's, ``--dp_devices`` other than 1 raises
-(:func:`hebbax_torch.cli.common.check_ported`).
+for; ``--dtype bfloat16``, ``--resume``, ``--profile_dir`` and
+``--dp_devices`` are hebbax's (:func:`hebbax_torch.cli.common.train`).
 """
 
 import argparse
@@ -51,7 +50,8 @@ def base_parser_3d(defaults=None):
     p.add_argument("--init_weights", default="kaiming", type=str)
     p.add_argument("--num_workers", default=8, type=int)
     p.add_argument("--dp_devices", default=1, type=int,
-                   help="data-parallel devices (only 1 is ported)")
+                   help="data-parallel ranks: N cards (0 = every visible "
+                        "card), or N CPU ranks with --device cpu")
     p.add_argument("--profile_dir", default=None, type=str,
                    help="trace epoch 1 with torch.profiler into this dir")
     p.add_argument("--dtype", default="float32", type=str,

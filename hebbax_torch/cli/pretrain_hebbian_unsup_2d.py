@@ -88,7 +88,7 @@ def build(args, loaders=None):
 def main(argv=None, loaders=None):
     parser = add_args(common.base_parser_2d())
     args = parser.parse_args(argv)
-    return build(args, loaders).run()
+    return common.train(build, args, loaders)
 
 
 if __name__ == "__main__":

@@ -189,22 +189,26 @@ def build(args, kind, loaders=None):
         loaders=loaders, num_classes=n_cls, paths=paths, args=args,
         device=device, palette=cfg["PALETTE"])
     if kind == "superpix":
-        def prep(batch):
-            masks = superpix_masks(batch["image"], args.seed)
+        # the pseudo-masks of the whole host batch, before any sharding
+        # (int32, as hebbax's: a padded sample's mask pads with -1)
+        trainer.host_prep = lambda batch: dict(
+            batch, mask_superpix=superpix_masks(
+                batch["image"], args.seed).astype(np.int32))
+
+        def to_device(batch):
             out = to_device_batch(batch, device)
-            out.pop("id", None)
-            out["mask_superpix"] = torch.from_numpy(masks).to(
-                device=device, dtype=torch.int64)
+            out["mask_superpix"] = torch.from_numpy(
+                batch["mask_superpix"]).to(device=device, dtype=torch.int64)
             return out
 
-        trainer.prep = prep
+        trainer.to_device = to_device
     return trainer
 
 
 def main(kind, argv=None, loaders=None):
     parser = add_args(common.base_parser_2d(), kind)
     args = parser.parse_args(argv)
-    return build(args, kind, loaders).run()
+    return common.train(build, args, kind, loaders)
 
 
 if __name__ == "__main__":

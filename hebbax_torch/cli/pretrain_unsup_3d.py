@@ -124,25 +124,30 @@ def build(args, kind, loaders=None):
         device=device, palette=cfg["PALETTE"])
     to_device = functools.partial(to_device_batch_3d, device=device)
     if kind == "superdiff":
-        trainer.prep = lambda batch: central_slice(to_device(batch))
+        trainer.to_device = lambda batch: central_slice(to_device(batch))
     elif kind == "superpix":
-        def prep(batch):
-            masks = superpix_masks_3d(batch["image"], args.seed)
+        # the pseudo-masks of the whole host batch, before any sharding
+        # (int32, as hebbax's: a padded sample's mask pads with -1)
+        trainer.host_prep = lambda batch: dict(
+            batch, mask_superpix=superpix_masks_3d(
+                batch["image"], args.seed).astype(np.int32))
+
+        def to_device_superpix(batch):
             out = to_device(batch)
-            out["mask_superpix"] = torch.from_numpy(masks).to(
-                device=device, dtype=torch.int64)
+            out["mask_superpix"] = torch.from_numpy(
+                batch["mask_superpix"]).to(device=device, dtype=torch.int64)
             return out
 
-        trainer.prep = prep
+        trainer.to_device = to_device_superpix
     else:
-        trainer.prep = to_device
+        trainer.to_device = to_device
     return trainer
 
 
 def main(kind, argv=None, loaders=None):
     parser = add_args(common3d.base_parser_3d(), kind)
     args = parser.parse_args(argv)
-    return build(args, kind, loaders).run()
+    return common.train(build, args, kind, loaders)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,12 @@ kept; ``--postprocessing`` adds hole filling + the largest component in
 ``test_seg_preds_postprocessed/``; then the pooled-voxel confusion and the
 per-volume HD95/ASSD of the evaluated folder go to ``test.csv``.
 
+``--dp_devices N`` (hebbax's mesh slider) runs N ranks
+(:func:`hebbax_torch.parallel.launch`): ``-b`` is rounded up to a multiple
+of N, each patch batch is split over the ranks, the accumulated volume is
+summed over them before thresholding, and rank 0 alone writes the
+predictions, post-processes and evaluates.
+
     python -m hebbax_torch.cli.test_3d --path_exp <run> -n unet3d \\
         --hebbian_pretrain 1 --postprocessing True
 """
@@ -19,6 +25,7 @@ import time
 
 import numpy as np
 
+from .. import parallel
 from ..config.datasets import dataset_cfg
 from ..data.augment3d import znormalize
 from ..data.nrrd_io import read_nrrd, write_nrrd
@@ -29,7 +36,7 @@ from ..models import get_network, primary_logits
 from ..ops.distance import eval_distance_offline
 from ..ops.morphology import postprocess_3d_pred
 from ..utils.checkpoint import load_snapshot
-from ..utils.logging import BoxPrinter, write_csv
+from ..utils.logging import BoxPrinter, SilentPrinter, write_csv
 from ..utils.seeding import init_seeds, make_generator
 from .common import resolve_device
 from .common3d import load_variables_into, parse_tuple
@@ -56,8 +63,9 @@ def build_parser():
     p.add_argument("--postprocessing", default=False)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--dp_devices", default=1, type=int,
-                   help="devices the patch batches shard over (only 1 is "
-                        "ported)")
+                   help="ranks the patch batches shard over: N cards (0 = "
+                        "every visible card), or N CPU ranks with --device "
+                        "cpu")
     return p
 
 
@@ -95,13 +103,13 @@ def offline_eval(pred_path, mask_path, num_classes=2):
 def run_test(args):
     """Evaluate the snapshot; returns offline_eval's metrics plus
     ``seconds``: the slider's and the post-processing + evaluation's wall
-    time per volume (``postprocess_eval``)."""
-    if args.dp_devices != 1:
-        raise NotImplementedError("--dp_devices != 1 is not ported yet")
+    time per volume (``postprocess_eval``).  Under data parallelism rank 0
+    returns them and the other ranks None."""
     device = resolve_device(args.device)
     cfg = dataset_cfg(args.dataset_name)
     init_seeds(args.seed)
-    printer = BoxPrinter(cfg["NUM_CLASSES"])
+    printer = (BoxPrinter if parallel.is_main() else SilentPrinter)(
+        cfg["NUM_CLASSES"])
     patch_size = parse_tuple(args.patch_size)
     overlap = parse_tuple(args.patch_overlap)
 
@@ -141,16 +149,21 @@ def run_test(args):
     printer.rule("=")
     finalize = "binary" if n_cls == 2 else "argmax"
     thr = 0.5 if threshold is None else float(threshold)
+    world = parallel.world_size()
+    batch_size = -(-args.batch_size // world) * world
     since = time.time()
     for i in range(len(ds)):
         item = ds.load_raw(i)
         pred = slide_window_inference_device(
             forward, znormalize(item["image"], normalize), patch_size,
-            overlap, n_cls, batch_size=args.batch_size, device=device,
+            overlap, n_cls, batch_size=batch_size, device=device,
             finalize=finalize, threshold=thr)
-        write_nrrd(os.path.join(path_seg, item["id"]), pred.cpu().numpy(),
-                   affine=item["affine"])
+        if parallel.is_main():
+            write_nrrd(os.path.join(path_seg, item["id"]),
+                       pred.cpu().numpy(), affine=item["affine"])
     slider_s = time.time() - since
+    if not parallel.is_main():
+        return None
     printer.line(f"Testing completed in {slider_s:.1f}s "
                  f"({len(ds) / max(slider_s, 1e-9):.3f} volumes/s)")
 
@@ -185,9 +198,11 @@ def run_test(args):
     return results
 
 
-def main(argv=None):
+def main(argv=None, **launch_kw):
+    """``launch_kw``: :func:`hebbax_torch.parallel.launch`'s ``timeout``
+    and ``deadline`` of a ``--dp_devices`` run."""
     args = build_parser().parse_args(argv)
-    return run_test(args)
+    return parallel.launch(run_test, args, **launch_kw)
 
 
 if __name__ == "__main__":

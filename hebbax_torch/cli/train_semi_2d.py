@@ -176,7 +176,7 @@ def build(args, algo, loaders=None):
 def main(algo, argv=None, loaders=None):
     parser = add_args(common.base_parser_2d(), algo)
     args = parser.parse_args(argv)
-    return build(args, algo, loaders).run()
+    return common.train(build, args, algo, loaders)
 
 
 if __name__ == "__main__":

@@ -71,14 +71,14 @@ def build(args, algo, loaders=None):
         load_weights=args.load_weights)
     trainer = make_trainer(args, algo, cfg, device, model, hebb, loaders,
                            paths)
-    trainer.prep = functools.partial(to_device_batch_3d, device=device)
+    trainer.to_device = functools.partial(to_device_batch_3d, device=device)
     return trainer
 
 
 def main(algo, argv=None, loaders=None):
     parser = add_args(common3d.base_parser_3d(), algo)
     args = parser.parse_args(argv)
-    return build(args, algo, loaders).run()
+    return common.train(build, args, algo, loaders)
 
 
 if __name__ == "__main__":

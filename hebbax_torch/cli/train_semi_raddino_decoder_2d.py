@@ -27,6 +27,7 @@ from ..models.raddino import (OFFLINE_WARNING, RadDinoDecoder, ViTEncoder,
                               load_hf_rad_dino_params,
                               reshape_patch_embeddings)
 from ..ops.losses import entropy_loss, segmentation_loss
+from ..parallel import average_grads
 from ..utils.rundir import dump_config, make_run_dir
 from ..utils.seeding import init_seeds, make_generator
 from . import common
@@ -84,7 +85,7 @@ def make_decoder_step(decoder, embed, criterion):
         loss = loss_s + loss_u
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         apply_grads(state.optimizer, state.schedule, state.step,
-                    dict(zip(params, grads)))
+                    average_grads(dict(zip(params, grads))))
         state.step += 1
         return state, {"loss": loss.detach(), "loss_sup": loss_s.detach(),
                        "loss_unsup": loss_u.detach(),
@@ -162,7 +163,7 @@ def build(args, loaders=None, image_size=IMAGE_SIZE, encoder_kw=None):
 def main(argv=None, loaders=None):
     parser = add_args(common.base_parser_2d())
     args = parser.parse_args(argv)
-    return build(args, loaders).run()
+    return common.train(build, args, loaders)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ regime-R/run-S`` below regime 100, ``fully_sup/snn_vgg/...`` at 100.
 The Poisson input draws from seed+4.
 """
 
+from . import common
 from .common import base_parser_2d
 from .train_sup_2d import add_args, build
 
@@ -18,7 +19,7 @@ from .train_sup_2d import add_args, build
 def main(argv=None, loaders=None):
     parser = add_args(base_parser_2d({"network": "snn_vgg"}))
     args = parser.parse_args(argv)
-    return build(args, loaders).run()
+    return common.train(build, args, loaders)
 
 
 if __name__ == "__main__":

@@ -76,14 +76,14 @@ def build(args, loaders=None):
         loaders=loaders, num_classes=cfg["NUM_CLASSES"], paths=paths,
         args=args, device=device, hebb_meta=hebb_meta,
         palette=cfg["PALETTE"])
-    trainer.prep = functools.partial(to_device_batch_3d, device=device)
+    trainer.to_device = functools.partial(to_device_batch_3d, device=device)
     return trainer
 
 
 def main(argv=None, loaders=None):
     parser = add_args(common3d.base_parser_3d())
     args = parser.parse_args(argv)
-    return build(args, loaders).run()
+    return common.train(build, args, loaders)
 
 
 if __name__ == "__main__":

@@ -6,10 +6,19 @@ train_log.csv/val_log.csv artifacts (kernel layouts in the snapshot
 follow the model's module types).  Every scalar ``loss*`` entry a step
 returns besides ``loss`` is averaged over the epoch and logged as its own
 ``train_log.csv`` column and ``train/<name>`` scalar.  ``--resume`` and
-``--profile_dir`` are hebbax's (:meth:`SupTrainer.run`).  Data parallelism
-is not ported yet.
+``--profile_dir`` are hebbax's (:meth:`SupTrainer.run`).
+
+A batch goes through :meth:`SupTrainer.prep`: the trainer's ``host_prep``
+(numpy, on the whole host batch), then under data parallelism
+(:mod:`hebbax_torch.parallel`) the padding to a multiple of the ranks, the
+0/1 ``weight`` vector and the rank's rows, then ``to_device``.  Train and
+validation metrics are those of the global ``logits[:n_valid]``: each rank
+counts its valid rows and the counters are summed at ``finalize``.  Only
+rank 0 prints and writes logs, TensorBoard, snapshots and ``resume.ckpt``;
+``--resume`` restores every rank.
 """
 
+import functools
 import os
 import time
 
@@ -18,10 +27,12 @@ import torch
 
 from ..bridge import kernel_layout
 from ..ops.metrics import make_accumulator
+from ..parallel import active, gather_rows, is_main, shard_global_batch
 from ..utils import images as image_utils
 from ..utils.checkpoint import (load_train_state, save_snapshot,
                                 save_train_state)
-from ..utils.logging import BoxPrinter, MetricsLog, make_tb_writer
+from ..utils.logging import (BoxPrinter, MetricsLog, NullWriter,
+                             SilentPrinter, make_tb_writer)
 
 
 def to_device_batch(batch, device):
@@ -60,6 +71,11 @@ class SupTrainer:
     eval_step : batch -> {'logits', 'loss'}
     train_key : the loader an epoch runs over (the semi trainers run over
         'train_sup' and draw from 'train_unsup' beside it)
+    host_prep : None or host batch -> host batch (numpy), run on the whole
+        batch before it is sharded (e.g. superpixel pseudo-masks)
+    to_device : host batch -> device batch (default
+        :func:`to_device_batch`; the 3D trainers set
+        :func:`to_device_batch_3d`)
     """
 
     train_key = "train"
@@ -77,18 +93,41 @@ class SupTrainer:
         self.device = device
         self.hebb_meta = hebb_meta or {}
         self.palette = palette
-        self.printer = printer or BoxPrinter(num_classes)
-        self.writer = make_tb_writer(paths.tensorboard)
+        main = is_main()
+        self.printer = printer or (BoxPrinter if main else SilentPrinter)(
+            num_classes)
+        self.writer = (make_tb_writer(paths.tensorboard) if main
+                       else NullWriter())
         self.train_log = MetricsLog(paths.run, "train_log.csv")
         self.val_log = MetricsLog(paths.run, "val_log.csv")
         self.best_val = [0.0, 0.0, 0.0]
         self._epoch_losses = None
         self._aux_losses = {}
+        self.host_prep = None
+        self.to_device = functools.partial(to_device_batch, device=device)
+        self._n_valid = None        # this rank's valid rows (dp)
+        self._n_valid_global = None
 
     def prep(self, batch):
-        out = to_device_batch(batch, self.device)
-        out.pop("id", None)
+        """Host batch -> this rank's device batch (module docstring);
+        under data parallelism it carries the ``weight`` vector and
+        records the valid rows of the global and of this rank's batch."""
+        batch = dict(batch)
+        batch.pop("id", None)
+        if self.host_prep is not None:
+            batch = self.host_prep(batch)
+        if not active():
+            return self.to_device(batch)
+        batch, self._n_valid_global, self._n_valid = shard_global_batch(
+            batch)
+        weight = batch.pop("weight")
+        out = self.to_device(batch)
+        out["weight"] = torch.from_numpy(weight).to(self.device)
         return out
+
+    def _valid(self, x):
+        """The rows of ``x`` (this rank's batch) that are not padding."""
+        return x if self._n_valid is None else x[:self._n_valid]
 
     def _save_best(self, threshold, epoch):
         save_snapshot(self.state.state_dict(), self.paths.checkpoints,
@@ -117,7 +156,8 @@ class SupTrainer:
                     aux_totals[k] = aux_totals.get(k, 0.0) + v
             n_batches += 1
             if acc is not None:
-                acc.update(out["logits"], batch["mask"])
+                acc.update(self._valid(out["logits"]),
+                           self._valid(batch["mask"]))
         n = max(n_batches, 1)
         self._aux_losses = {k: float(v) / n for k, v in aux_totals.items()}
         return float(total_loss) / n, acc
@@ -133,10 +173,12 @@ class SupTrainer:
             if "loss" in out:
                 total_loss = total_loss + out["loss"]
             n_batches += 1
-            acc.update(out["logits"], batch["mask"])
+            acc.update(self._valid(out["logits"]), self._valid(batch["mask"]))
             if self.args.debug and self.palette is not None:
                 # softmax in the logits' dtype, as hebbax's
                 probs = torch.softmax(out["logits"], dim=1)[:, 1]
+                if active():
+                    probs = gather_rows(probs)[:self._n_valid_global]
                 preds.append(probs.float().cpu().numpy())
                 names.extend(ids or [])
         thr, ji, dc = acc.finalize()
@@ -169,9 +211,10 @@ class SupTrainer:
             out = self.train_epoch(epoch, display)
             if torch.device(self.device).type == "cuda":
                 torch.cuda.synchronize(self.device)
-        os.makedirs(self.args.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(
-            self.args.profile_dir, f"epoch{epoch}.pt.trace.json"))
+        if is_main():
+            os.makedirs(self.args.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                self.args.profile_dir, f"epoch{epoch}.pt.trace.json"))
         return out
 
     def run(self):
@@ -179,7 +222,10 @@ class SupTrainer:
         epoch of ``resume.ckpt`` and rewrites it after every validated
         epoch; a resumed run's loaders start at their epoch 0 shuffle, as
         hebbax's do.  ``--profile_dir`` traces epoch 1 (past the first
-        epoch's warm-up) into that directory."""
+        epoch's warm-up) into that directory.  Under data parallelism
+        every rank decides alike (its metrics are global) and rank 0
+        alone writes."""
+        main = is_main()
         args = self.args
         since = time.time()
         for epoch in range(self._resume(), args.num_epochs):
@@ -232,18 +278,21 @@ class SupTrainer:
                                     JI=ev[1], DC=ev[2])
                 if ev[1] > self.best_val[1]:
                     self.best_val = list(ev)
-                    self._save_best(ev[0], epoch)
-                    if args.debug and preds and self.palette is not None:
+                    if main:
+                        self._save_best(ev[0], epoch)
+                    if (main and args.debug and preds
+                            and self.palette is not None):
                         image_utils.save_preds(
                             np.concatenate(preds), ev[0], names,
                             self.paths.val_seg_preds, self.palette)
-                if getattr(args, "resume", None):
+                if main and getattr(args, "resume", None):
                     save_train_state(self.state, self.paths.checkpoints,
                                      epoch, self.best_val)
 
-        self._save_last(self.best_val[0])
-        self.train_log.flush()
-        self.val_log.flush()
+        if main:
+            self._save_last(self.best_val[0])
+            self.train_log.flush()
+            self.val_log.flush()
         self.printer.rule("=")
         self.printer.best_val(self.num_classes, self.best_val)
         elapsed = time.time() - since

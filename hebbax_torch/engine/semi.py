@@ -12,6 +12,11 @@ w*(epoch+1)/E is applied by the harness.
 Random draws come from explicit ``torch.Generator``s (CCT's perturbations
 from the model's, UAMT's noise from the step's); a caller may pass UAMT's
 noise in as a tensor.
+
+Under data parallelism the steps average their grads over the ranks
+(:func:`hebbax_torch.parallel.average_grads`), and the per-sample
+``weight`` of a padded batch masks the padded samples out of UAMT's
+consistency and CPS's pseudo-labels, as hebbax's do.
 """
 
 import dataclasses
@@ -25,6 +30,7 @@ from ..models.registry import primary_logits
 from ..ops.ema import update_ema
 from ..ops.losses import entropy_loss, softmax_mse_loss, weighted_mean
 from ..ops.metrics import make_accumulator
+from ..parallel import average_grads, draw_rows, gsum
 from ..utils.checkpoint import save_snapshot
 from .loop import SupTrainer
 from .steps import apply_grads
@@ -69,7 +75,7 @@ def make_semi_step(model, network: str, criterion, unsup_fn: Callable,
         loss = loss_s + loss_u
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         apply_grads(state.optimizer, state.schedule, state.step,
-                    dict(zip(params, grads)))
+                    average_grads(dict(zip(params, grads))))
         state.step += 1
         return state, _detached({"loss": loss, "loss_sup": loss_s,
                                  "loss_unsup": loss_u,
@@ -181,9 +187,11 @@ class DualState:
 
 def uamt_noise(images, n, generator=None):
     """n draws of clamp(0.1*N(0,1), +-0.2) shaped like ``images``: the
-    teacher's, then the MC ones."""
-    z = torch.randn((n,) + tuple(images.shape), dtype=images.dtype,
-                    device=images.device, generator=generator)
+    teacher's, then the MC ones (the global batch's draws under data
+    parallelism, this rank's rows)."""
+    z = draw_rows(lambda shape: torch.randn(
+        shape, dtype=images.dtype, device=images.device,
+        generator=generator), (n,) + tuple(images.shape), axis=1)
     return torch.clamp(0.1 * z, -0.2, 0.2)
 
 
@@ -232,18 +240,22 @@ def make_uamt_step(model, teacher, network: str, criterion,
             # compared in float32, as hebbax's float32 threshold is
             unc_mask = (uncertainty.float() < uamt_threshold(
                 epoch, num_epochs)).to(torch.float32)
+            w = unsup_batch.get("weight")
+            if w is not None:   # padded samples leave both sums
+                unc_mask = unc_mask * w.reshape(
+                    (-1,) + (1,) * (unc_mask.dim() - 1))
 
         model.train()
         logits_u = primary_logits(network, model(img_u))
         logits_s = primary_logits(network, model(sup_batch["image"]))
         cons = softmax_mse_loss(logits_u, t_logits)
-        loss_u = (torch.sum(unc_mask * cons)
-                  / (2 * torch.sum(unc_mask) + 1e-16)) * unsup_weight
+        loss_u = (gsum(torch.sum(unc_mask * cons))
+                  / (2 * gsum(torch.sum(unc_mask)) + 1e-16)) * unsup_weight
         loss_s = criterion(logits_s, sup_batch["mask"])
         loss = loss_s + loss_u
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         apply_grads(state.optimizer1, state.schedule1, state.step,
-                    dict(zip(params, grads)))
+                    average_grads(dict(zip(params, grads))))
         update_ema(teacher, model, ema_decay, epoch)
         state.step += 1
         return state, _detached({"loss": loss, "loss_sup": loss_s,
@@ -267,17 +279,23 @@ def make_cps_step(model1, model2, network: str, criterion):
         l2u = primary_logits(network, model2(img_u))
         pl1 = torch.argmax(l1u.detach(), dim=1)
         pl2 = torch.argmax(l2u.detach(), dim=1)
+        w = unsup_batch.get("weight")
+        if w is not None:   # padded samples' pseudo-labels -> ignore
+            keep = w.reshape((-1,) + (1,) * (pl1.dim() - 1)) > 0
+            pl1 = torch.where(keep, pl1, -1)
+            pl2 = torch.where(keep, pl2, -1)
         loss_u = (criterion(l1u, pl2) + criterion(l2u, pl1)) * unsup_weight
         l1s = primary_logits(network, model1(sup_batch["image"]))
         l2s = primary_logits(network, model2(sup_batch["image"]))
         loss_s = (criterion(l1s, sup_batch["mask"])
                   + criterion(l2s, sup_batch["mask"]))
         loss = loss_s + loss_u
-        grads = torch.autograd.grad(loss, p1 + p2, allow_unused=True)
+        grads = average_grads(dict(zip(
+            p1 + p2, torch.autograd.grad(loss, p1 + p2, allow_unused=True))))
         apply_grads(state.optimizer1, state.schedule1, state.step,
-                    dict(zip(p1, grads[:len(p1)])))
+                    {p: grads[p] for p in p1})
         apply_grads(state.optimizer2, state.schedule2, state.step,
-                    dict(zip(p2, grads[len(p1):])))
+                    {p: grads[p] for p in p2})
         state.step += 1
         return state, _detached({"loss": loss, "loss_sup": loss_s,
                                  "loss_unsup": loss_u, "logits": l1s,
@@ -325,13 +343,14 @@ class SemiTrainer(SupTrainer):
         w = self.epoch_weight(epoch)
         for sup_batch in self.loaders[self.train_key]:
             unsup_b = self.prep(self.next_unsup())
-            sup_b = self.prep(sup_batch)
+            sup_b = self.prep(sup_batch)    # last: the valid rows are its
             self.state, out = self.call_step(sup_b, unsup_b, w, epoch)
             for k in totals:
                 totals[k] = totals[k] + out[k]    # device accumulation
             n += 1
             if acc is not None:
-                acc.update(out["logits"], sup_b["mask"])
+                acc.update(self._valid(out["logits"]),
+                           self._valid(sup_b["mask"]))
         n = max(n, 1)
         self._epoch_losses = {k: float(v) / n for k, v in totals.items()}
         return self._epoch_losses["loss"], acc
@@ -351,7 +370,8 @@ class DualEvalMixin:
     Hebbian spec (UAMT's teacher itself; for CPS a twin that takes model
     2's weights before each validation), as hebbax validates both members
     through model 1's module: the weight-normalized forward that the
-    saved snapshot's hebb_params describe.
+    saved snapshot's hebb_params describe.  As hebbax's, it counts every
+    row of a data-parallel padded batch, the padding included.
     """
 
     def __init__(self, *, eval_model2, eval_step2, **kw):

@@ -8,6 +8,11 @@ the volume's first patch, whose output is dropped); their logits are added
 into a device-resident volume in the grid's order and divided by the
 per-voxel hit counts.  :func:`slide_window_inference` is hebbax's host
 version, kept as the yardstick of the device one.
+
+Under data parallelism (``test_3d --dp_devices N``, hebbax's mesh slider)
+each patch batch is split over the ranks, each rank adds its patches'
+logits into its own volume, and the volumes are summed over the ranks
+before the hit counts divide them and the result is thresholded.
 """
 
 import math
@@ -15,6 +20,8 @@ from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel import rank, sum_tensors, world_size
 
 
 def grid_locations(vol_shape: Sequence[int], patch_size: Sequence[int],
@@ -58,7 +65,9 @@ def slide_window_inference_device(forward: Callable, volume: np.ndarray,
     a model in eval mode; it runs under ``torch.no_grad()``.
     finalize: None -> (C, X, Y, Z) float32 averaged logits;
     'binary' -> (X, Y, Z) uint8, softmax class-1 probability > threshold
-    (the stored per-run value, required); 'argmax' -> (X, Y, Z) uint8."""
+    (the stored per-run value, required); 'argmax' -> (X, Y, Z) uint8.
+    Under data parallelism ``batch_size`` must be a multiple of the ranks;
+    each rank forwards its contiguous share of every batch."""
     if finalize == "binary" and threshold is None:
         raise ValueError(
             "finalize='binary' requires an explicit threshold (the "
@@ -76,15 +85,22 @@ def slide_window_inference_device(forward: Callable, volume: np.ndarray,
     acc = torch.zeros((n_cls,) + vol.shape, dtype=torch.float32,
                       device=device)
     px, py, pz = patch_size
+    world = world_size()
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} is not a multiple of the "
+                         f"{world} data-parallel ranks")
+    local = batch_size // world
+    lo = rank() * local
     with torch.no_grad():
         for start in range(0, len(locs), batch_size):
             chunk = locs[start:start + batch_size]
             padded = chunk + [(0, 0, 0)] * (batch_size - len(chunk))
             patches = torch.stack([vol_d[x:x + px, y:y + py, z:z + pz]
-                                   for x, y, z in padded])
+                                   for x, y, z in padded[lo:lo + local]])
             out = forward(patches[:, None]).float()
-            for j, (x, y, z) in enumerate(chunk):
+            for j, (x, y, z) in enumerate(chunk[lo:lo + local]):
                 acc[:, x:x + px, y:y + py, z:z + pz] += out[j]
+        sum_tensors([acc])
         agg = acc * inv_hits
         if finalize == "binary":
             agg = (torch.softmax(agg, dim=0)[1] > threshold).to(torch.uint8)

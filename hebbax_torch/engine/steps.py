@@ -16,6 +16,13 @@ reached, so Adam's and SGD's moments decay the same way.
 The unsupervised pretrainers' probe step takes two gradients of one
 forward: the pretext loss over every parameter, the probe's segmentation
 loss over the head only.
+
+Under data parallelism (:mod:`hebbax_torch.parallel`) each rank holds the
+global loss; its grads are all-reduced and divided by N
+(:func:`~hebbax_torch.parallel.average_grads`) and its Hebbian deltas
+summed (:func:`~hebbax_torch.parallel.sum_dict`) before they merge, so
+every rank applies the single process's update.  The steps take
+``torch.autograd.grad``, where DDP's reducer hooks never fire.
 """
 
 import torch
@@ -23,6 +30,7 @@ import torch
 from ..hebb.spec import is_excluded
 from ..hebb.surgery import merge_hebbian_grads, pop_deltas
 from ..models.registry import primary_logits
+from ..parallel import average_grads, sum_dict
 
 
 def _module_path(param_name):
@@ -94,9 +102,11 @@ def make_sup_train_step(model, network: str, criterion,
             # deep supervision) gets None here and a zero grad below
             gs = torch.autograd.grad(loss, [params[n] for n in diff],
                                      allow_unused=True)
-            grads = {n: g for n, g in zip(diff, gs) if g is not None}
+            grads = average_grads(
+                {n: g for n, g in zip(diff, gs) if g is not None})
         if hebb_alpha:
-            grads = merge_hebbian_grads(params, grads, deltas, hebb_alpha)
+            grads = merge_hebbian_grads(params, grads, sum_dict(deltas),
+                                        hebb_alpha)
         apply_grads(state.optimizer, state.schedule, state.step,
                     {params[n]: g for n, g in grads.items()})
         state.step += 1
@@ -125,6 +135,7 @@ def probe_pretrain_update(state, params, losses, head_names):
     for n, g in zip(head, g_probe):
         if g is not None:
             grads[n] = g if n not in grads else grads[n] + g
+    grads = average_grads(grads)
     apply_grads(state.optimizer, state.schedule, state.step,
                 {params[n]: g for n, g in grads.items()})
     state.step += 1

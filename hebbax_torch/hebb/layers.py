@@ -35,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import world_size
 from . import rules
 from .spec import HebbSpec, spec_if_active
 
@@ -144,7 +145,9 @@ class HConv(nn.Module):
         if spec is not None and self.training and spec.alpha != 0:
             perm = None
             if spec.conv_mode(self.transpose) == "contrastive":
-                perm = self.draw_permutation(x.shape[0]).to(x.device)
+                # a permutation of the global batch under data parallelism
+                perm = self.draw_permutation(
+                    x.shape[0] * world_size()).to(x.device)
             with torch.no_grad():
                 d = rules.compute_delta(spec, self.weight.detach(),
                                         x.detach().float(),

@@ -38,6 +38,8 @@ import itertools
 import torch
 import torch.nn.functional as F
 
+from ..parallel import active, gather_rows, rank
+
 _CONV_WEIGHT = {2: torch.nn.grad.conv2d_weight,
                 3: torch.nn.grad.conv3d_weight}
 _CONV = {2: F.conv2d, 3: F.conv3d}
@@ -254,8 +256,7 @@ def contrastive_delta(w, x, perm, stride, padding, transpose, w_nrm,
             y = y + bias.detach().float().view((-1,) + (1,) * nd)
         y = normalize(y, (1,))
         nbr = neighborhood_sum(y)
-        obj = (-torch.sum(nbr * y, dim=1)
-               + contrast * torch.sum(nbr[perm] * y, dim=1))
+        umap = None
         if uniformity:
             with torch.no_grad():
                 xn = normalize(x, (1,))
@@ -264,8 +265,34 @@ def contrastive_delta(w, x, perm, stride, padding, transpose, w_nrm,
                 ones_k = torch.ones((1, 1) + tuple(w.shape[2:]),
                                     dtype=torch.float32, device=x.device)
                 umap = fwd(umap, ones_k)[:, 0]
-            obj = obj * umap
+        if active():
+            obj = _contrastive_objective_dp(y, nbr, perm, contrast, umap)
+        else:
+            obj = (-torch.sum(nbr * y, dim=1)
+                   + contrast * torch.sum(nbr[perm] * y, dim=1))
+            if umap is not None:
+                obj = obj * umap
         return torch.autograd.grad(obj.sum(), w_)[0]
+
+
+def _contrastive_objective_dp(y, nbr, perm, contrast, umap):
+    """This rank's share of the contrastive objective when ``perm``
+    permutes the global batch (hebbax permutes it whole, so a sample's
+    partner may sit on another rank).  The partner term nbr(y_perm[b]) .
+    y_b is differentiated through y_b here, with the partner's gathered
+    nbr held fixed, and through nbr(y_p) on the rank holding p, with the
+    gathered (uniformity-weighted) y of its inverse partner held fixed:
+    the ranks' gradients sum to the global one."""
+    n = y.shape[0]
+    lo = rank() * n
+    wy = y if umap is None else y * umap[:, None]
+    partner_nbr = gather_rows(nbr)[perm[lo:lo + n]]
+    inverse_wy = gather_rows(wy)[torch.argsort(perm)[lo:lo + n]]
+    obj = (-torch.sum(nbr * y, dim=1)
+           + contrast * torch.sum(partner_nbr * y, dim=1))
+    if umap is not None:
+        obj = obj * umap
+    return obj.sum() + contrast * torch.sum(nbr * inverse_wy)
 
 
 def compute_delta(spec, w, x, y, padding, transpose=False, stride=1,

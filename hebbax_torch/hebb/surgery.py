@@ -32,7 +32,8 @@ def merge_hebbian_grads(params, grads, deltas, alpha):
         if name not in params:
             continue
         g = out.get(name)
-        merged = -alpha * delta
+        # the delta is float32; a float64 network's grad stays float64
+        merged = -alpha * delta.to(params[name].dtype)
         if g is not None:
             merged = (1.0 - alpha) * g + merged
         out[name] = merged

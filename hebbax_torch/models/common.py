@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dropout import Dropout
+from ..parallel import batch_var_mean, draw_rows
 
 CCT_PERTURB_KINDS = ("noise", "dropout", "feature_dropout")
 CCT_DROPOUT_P = 0.3             # element dropout rate
@@ -134,8 +135,10 @@ def draw_perturbation(kind, x, generator=None):
                            device=x.device).uniform_(
             -CCT_NOISE_RANGE, CCT_NOISE_RANGE, generator=generator)
     if kind == "dropout":
-        return torch.empty_like(x).bernoulli_(
-            1.0 - CCT_DROPOUT_P, generator=generator).bool()
+        # the global batch's mask under data parallelism, this rank's rows
+        return draw_rows(lambda shape: torch.empty(
+            shape, dtype=x.dtype, device=x.device).bernoulli_(
+            1.0 - CCT_DROPOUT_P, generator=generator).bool(), x.shape)
     if kind == "feature_dropout":
         return torch.empty((), dtype=x.dtype, device=x.device).uniform_(
             *CCT_FRAC_RANGE, generator=generator)
@@ -199,9 +202,10 @@ class Dropout3d(Dropout):
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.empty(x.shape[:2] + (1,) * (x.dim() - 2),
-                           dtype=x.dtype, device=x.device).bernoulli_(
-            1.0 - self.p, generator=self.generator)
+        keep = draw_rows(lambda shape: torch.empty(
+            shape, dtype=x.dtype, device=x.device).bernoulli_(
+            1.0 - self.p, generator=self.generator),
+            x.shape[:2] + (1,) * (x.dim() - 2))
         return x * keep * (1.0 / (1.0 - self.p))
 
 
@@ -222,6 +226,10 @@ class BatchNorm2d(nn.Module):
     normalization are computed in float32 whatever x's dtype, and only
     the result is cast: to ``compute_dtype`` when set (flax's ``dtype=``),
     else to the promotion of x's dtype with float32.
+
+    Under data parallelism the batch statistics are the global batch's
+    (:func:`hebbax_torch.parallel.batch_var_mean`, differentiable), as
+    flax's under SPMD, so the running statistics move alike on every rank.
     """
 
     eps = 1e-5
@@ -254,8 +262,8 @@ class BatchNorm2d(nn.Module):
             y = F.batch_norm(x, self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
             return y.to(out_dtype)
-        var, mean = torch.var_mean(x, dim=(0,) + tuple(range(2, x.dim())),
-                                   unbiased=False)
+        # over the global batch under data parallelism
+        var, mean = batch_var_mean(x, (0,) + tuple(range(2, x.dim())))
         with torch.no_grad():
             self.running_mean.lerp_(mean.detach(), self.momentum)
             self.running_var.lerp_(var.detach(), self.momentum)

@@ -33,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import batch_var_mean, draw_rows
 from .common import BatchNorm2d, resize_linear_align_corners
 
 FEATURES = (64, 64, 128, 128, 256, 256, 256)
@@ -141,8 +142,10 @@ class SNNVGG(nn.Module):
         if gen is None:
             gen = torch.Generator(device=x.device)
             gen.manual_seed(0)
-        return torch.rand((self.timesteps,) + tuple(x.shape), dtype=x.dtype,
-                          device=x.device, generator=gen)
+        # the global batch's draws under data parallelism, this rank's rows
+        return draw_rows(lambda shape: torch.rand(
+            shape, dtype=x.dtype, device=x.device, generator=gen),
+            (self.timesteps,) + tuple(x.shape), axis=1)
 
     def _bntt(self, pre, s, t):
         """Scale-only batch norm of site ``s`` at timestep ``t``: a training
@@ -151,7 +154,7 @@ class SNNVGG(nn.Module):
         bn = self.bn_names[s]
         means, varis = getattr(self, f"{bn}_mean"), getattr(self, f"{bn}_var")
         if self.training:
-            var, mu = torch.var_mean(pre, dim=(0, 2, 3), unbiased=False)
+            var, mu = batch_var_mean(pre, (0, 2, 3))
             with torch.no_grad():
                 means[t] = 0.9 * means[t] + 0.1 * mu
                 varis[t] = 0.9 * varis[t] + 0.1 * var

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from ..hebb.layers import HConv, bind_paths, set_compute_dtype
 from ..hebb.spec import HebbSpec
 from ..ops.dropout import Dropout
+from ..parallel import draw_rows
 from .common import (CCT_PERTURB_KINDS, BatchNorm2d, cct_aux_outputs,
                      draw_perturbation, max_pool, perturb_features,
                      resize_linear_align_corners, resize_nearest_torch)
@@ -330,8 +331,9 @@ class UNetVAE2D(nn.Module):
     def draw_latent(self, std):
         if self.latent_generator is None:
             return torch.zeros_like(std)
-        return torch.randn(std.shape, dtype=std.dtype, device=std.device,
-                           generator=self.latent_generator)
+        return draw_rows(lambda shape: torch.randn(
+            shape, dtype=std.dtype, device=std.device,
+            generator=self.latent_generator), std.shape)
 
     def forward(self, x, eps=None):
         feats = self.encoder(x)

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..hebb.layers import HConv, HConvTranspose, bind_paths, set_compute_dtype
 from ..hebb.spec import HebbSpec
+from ..parallel import draw_rows
 from .common import (CCT_PERTURB_KINDS, BatchNorm3d, cct_aux_outputs,
                      draw_perturbation, max_pool, perturb_features)
 
@@ -238,8 +239,9 @@ class UNet3DVAE(nn.Module):
     def draw_latent(self, std):
         if self.latent_generator is None:
             return torch.zeros_like(std)
-        return torch.randn(std.shape, dtype=std.dtype, device=std.device,
-                           generator=self.latent_generator)
+        return draw_rows(lambda shape: torch.randn(
+            shape, dtype=std.dtype, device=std.device,
+            generator=self.latent_generator), std.shape)
 
     def forward(self, x, eps=None):
         feats, bottleneck = self.encoder(x)

@@ -18,6 +18,8 @@ the tensors lie.  Square spatial dims are required, as in hebbax.
 
 import torch
 
+from ..parallel import rows, world_size
+
 FLIP_P = 0.75
 TRANSPOSE_P = 0.5
 
@@ -50,8 +52,9 @@ def augment_batch(generator, images, masks=None):
     if h != w:
         raise ValueError(f"device augmentation needs square images, got "
                          f"{h}x{w}")
-    draws = [t.tolist() for t in draw_transforms(generator,
-                                                 images.shape[0])]
+    # the global batch's draws under data parallelism, this rank's rows
+    draws = [rows(t).tolist() for t in draw_transforms(
+        generator, images.shape[0] * world_size())]
     img_out, mask_out = [], []
     for i, d in enumerate(zip(*draws)):
         img_out.append(apply_transform(images[i], *d))

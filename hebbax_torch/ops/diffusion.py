@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import draw_rows, gmean
+
 
 def linear_beta_schedule(timesteps):
     scale = 1000 / timesteps
@@ -191,18 +193,18 @@ def super_p_losses(sched, apply_model, x_start, y_start, t, noise,
             target = x_start
         else:
             target = predict_v(sched, x_start, t, noise)
-        loss = torch.mean((model_out - target) ** 2)
+        loss = gmean((model_out - target) ** 2)
     else:
         loss = loss_fn(unnormalize(pred),
                        torch.argmax(unnormalize(x_start), dim=1))
-    w = torch.mean(_extract(sched.loss_weight, t, 1))
+    w = gmean(_extract(sched.loss_weight, t, 1))
     return loss * w, unnormalize(pred)
 
 
 def draw_timesteps(sched, n, device=None, generator=None):
     """t ~ U{0, ..., T-1}, one per sample."""
-    return torch.randint(0, sched.timesteps, (n,), device=device,
-                         generator=generator)
+    return draw_rows(lambda shape: torch.randint(
+        0, sched.timesteps, shape, device=device, generator=generator), (n,))
 
 
 def super_forward(sched, apply_model, img, target_mask, n_classes,
@@ -225,8 +227,9 @@ def super_forward(sched, apply_model, img, target_mask, n_classes,
     x_start, y_start = ((img_n, tgt_n) if conditioner == "target"
                         else (tgt_n, img_n))
     if noise is None:
-        noise = torch.randn(x_start.shape, dtype=x_start.dtype,
-                            device=x_start.device, generator=generator)
+        noise = draw_rows(lambda shape: torch.randn(
+            shape, dtype=x_start.dtype, device=x_start.device,
+            generator=generator), x_start.shape)
     return super_p_losses(sched, apply_model, x_start, y_start, t, noise,
                           loss_fn=loss_fn)
 
@@ -249,7 +252,8 @@ def sample_mask(sched, apply_model, img, n_classes, conditioner="img",
                         else (tgt_n, img_n))
     c_in = x_start.shape[1]
     if noise is None:
-        noise = torch.randn(x_start.shape, generator=generator, **kw)
+        noise = draw_rows(lambda shape: torch.randn(
+            shape, generator=generator, **kw), x_start.shape)
     t_full = torch.full((b,), sched.timesteps - 1, dtype=torch.int64,
                         device=img.device)
     x = q_sample(sched, x_start, t_full, noise)
@@ -260,6 +264,7 @@ def sample_mask(sched, apply_model, img, n_classes, conditioner="img",
         x0 = torch.clamp(pred_x_start(sched, x, tb, model_out), -1.0, 1.0)
         mean, log_var = q_posterior(sched, x0, x, tb)
         z = (step_noise[i] if step_noise is not None
-             else torch.randn(mean.shape, generator=generator, **kw))
+             else draw_rows(lambda shape: torch.randn(
+                 shape, generator=generator, **kw), mean.shape))
         x = mean + torch.exp(0.5 * log_var) * z if t > 0 else mean
     return unnormalize(x[:, :c_in])

@@ -10,6 +10,8 @@ mask stream differs from hebbax's by design: parity tests run with p=0.
 import torch
 import torch.nn as nn
 
+from ..parallel import draw_rows
+
 
 class Dropout(nn.Module):
     def __init__(self, p: float, generator=None):
@@ -22,8 +24,10 @@ class Dropout(nn.Module):
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                              generator=self.generator)
+        # the global batch's mask under data parallelism, this rank's rows
+        keep = draw_rows(lambda shape: torch.empty(
+            shape, dtype=x.dtype, device=x.device).bernoulli_(
+            1.0 - self.p, generator=self.generator), x.shape)
         return x * keep * (1.0 / (1.0 - self.p))
 
     def extra_repr(self):

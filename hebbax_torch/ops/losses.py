@@ -2,12 +2,22 @@
 channels-first logits ``(N, C, *spatial)`` (2D or 3D) and integer masks
 ``(N, *spatial)`` with ``ignore_index=-1`` marking invalid pixels.  The
 segmentation losses upcast the logits and reduce in float32, as hebbax's
-do; the consistency losses keep the logits' dtype."""
+do; the consistency losses keep the logits' dtype.
+
+Under data parallelism (:mod:`hebbax_torch.parallel`) every denominator is
+the global batch's, as hebbax's under SPMD: a rank's partial sums go
+through :func:`~hebbax_torch.parallel.gsum`, so each rank holds the global
+loss (Sigma w for :func:`weighted_mean`, the effective sample count for
+dice, the valid pixels for CE / BCE / bcebound).  A per-rank mean
+followed by averaged gradients would be wrong whenever the ranks' valid
+counts differ, as padding makes them."""
 
 import math
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import gmean, gsum
 
 
 def weighted_mean(x, w=None):
@@ -15,10 +25,10 @@ def weighted_mean(x, w=None):
     ``w`` (N,): with a 0/1 validity vector it is the mean over the valid
     samples only."""
     if w is None:
-        return torch.mean(x)
+        return gmean(x)
     wb = w.reshape((-1,) + (1,) * (x.dim() - 1))
-    denom = torch.sum(w) * float(math.prod(x.shape[1:]))
-    return torch.sum(x * wb) / torch.clamp(denom, min=1.0)
+    denom = gsum(torch.sum(w)) * float(math.prod(x.shape[1:]))
+    return gsum(torch.sum(x * wb)) / torch.clamp(denom, min=1.0)
 
 
 def softmax_mse_loss(input_logits, target_logits):
@@ -58,8 +68,9 @@ def dice_loss(logits, target, num_classes=None, smooth=1.0, p=2,
     num = 2.0 * torch.sum(probs * onehot * valid, dim=2) + smooth
     den = torch.sum((probs ** p + onehot ** p) * valid, dim=2) + smooth
     sample_valid = (torch.sum(valid, dim=2) > 0).float()      # (N, 1)
-    n_eff = torch.clamp(torch.sum(sample_valid), min=1.0)
-    per_class = torch.sum((1.0 - num / den) * sample_valid, dim=0) / n_eff
+    n_eff = torch.clamp(gsum(torch.sum(sample_valid)), min=1.0)
+    per_class = gsum(torch.sum((1.0 - num / den) * sample_valid,
+                               dim=0)) / n_eff
     return torch.mean(per_class)
 
 
@@ -70,13 +81,14 @@ def cross_entropy_loss(logits, target, ignore_index=-1):
     logp = torch.log_softmax(logits.float(), dim=1)
     onehot, _ = _one_hot_valid(target, num_classes, ignore_index)
     nll = -torch.sum(onehot * logp, dim=1) * valid
-    return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1.0)
+    return gsum(torch.sum(nll)) / torch.clamp(gsum(torch.sum(valid)),
+                                              min=1.0)
 
 
 def kl_loss(mean, std):
     """|E[m^2]| + |E[s^2]| - |E[log s^2]| - 1 (VAE KL surrogate)."""
-    return (torch.mean(mean * mean) + torch.mean(std * std)
-            - torch.mean(torch.log(std * std)) - 1.0)
+    return (gmean(mean * mean) + gmean(std * std)
+            - gmean(torch.log(std * std)) - 1.0)
 
 
 def elbo_metric(vae_outputs, targets, beta=1.0, weight=None):
@@ -102,7 +114,8 @@ def bce_loss(logits, target, ignore_index=-1):
     eps = 1e-7
     bce = (t * torch.log(probs + eps)
            + (1 - t) * torch.log(1 - probs + eps)) * valid
-    return -torch.sum(bce) / torch.clamp(torch.sum(valid), min=1.0)
+    return -gsum(torch.sum(bce)) / torch.clamp(gsum(torch.sum(valid)),
+                                               min=1.0)
 
 
 def bce_bound_loss(logits, target, num_classes=2, ignore_index=-1):
@@ -111,14 +124,14 @@ def bce_bound_loss(logits, target, num_classes=2, ignore_index=-1):
     mean (hebbax's ``bce_bound_loss``)."""
     probs = torch.softmax(logits.float(), dim=1)
     onehot, valid = _one_hot_valid(target, num_classes, ignore_index)
-    n_valid = torch.clamp(torch.sum(valid), min=1.0)
+    n_valid = torch.clamp(gsum(torch.sum(valid)), min=1.0)
     losses = []
     for i in range(num_classes):
         p = torch.clamp(probs[:, i], 1e-3, 1 - 1e-3)
         t = onehot[:, i] * valid
-        tt = torch.log(n_valid / (torch.sum(t) + 1))
+        tt = torch.log(n_valid / (gsum(torch.sum(t)) + 1))
         bce = (tt * t * torch.log(p) + (1 - t) * torch.log(1 - p)) * valid
-        losses.append(-torch.sum(bce) / n_valid)
+        losses.append(-gsum(torch.sum(bce)) / n_valid)
     return torch.mean(torch.stack(losses))
 
 

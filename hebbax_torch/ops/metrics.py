@@ -9,6 +9,8 @@ does), and the argmax-Jaccard selection happens once at ``finalize``.
 import numpy as np
 import torch
 
+from ..parallel import active, sum_tensors
+
 THR_RANGE = (0.0, 0.9)
 THR_INTERVAL = 0.02
 THRESHOLDS = np.arange(THR_RANGE[0], THR_RANGE[1], THR_INTERVAL)
@@ -48,6 +50,12 @@ class SweepAccumulator:
         return self
 
     def finalize(self):
+        """Under data parallelism the counters are first summed over the
+        ranks (every rank counts its valid rows; a rank with none updates
+        with an empty batch, so every rank holds counters)."""
+        if active() and self.tp is not None:
+            self.tp, self.union = sum_tensors([self.tp.clone(),
+                                               self.union.clone()])
         n = len(THRESHOLDS)
         tp = (np.zeros(n) if self.tp is None
               else self.tp.double().cpu().numpy())

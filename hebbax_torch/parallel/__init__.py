@@ -1,0 +1,15 @@
+"""Data parallelism over N cards or N CPU ranks (``hebbax/parallel``):
+hebbax's global-batch semantics with explicit collectives
+(:mod:`hebbax_torch.parallel.mesh`)."""
+
+from .mesh import (DEFAULT_TIMEOUT_S, active, average_grads,
+                   batch_var_mean, disable, draw_rows, enable, gather_rows,
+                   gmean, gsum, is_main, launch, pad_batch_to, rank,
+                   resolve_world, rows, run_ranks, shard_global_batch,
+                   sum_dict, sum_tensors, world_size)
+
+__all__ = ["DEFAULT_TIMEOUT_S", "active", "average_grads", "batch_var_mean",
+           "disable", "draw_rows", "enable", "gather_rows", "gmean", "gsum",
+           "is_main", "launch", "pad_batch_to", "rank", "resolve_world",
+           "rows", "run_ranks", "shard_global_batch", "sum_dict",
+           "sum_tensors", "world_size"]

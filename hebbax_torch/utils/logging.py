@@ -74,7 +74,18 @@ class MetricsLog:
         write_csv(self.path, self.rows)
 
 
-class _NullWriter:
+class SilentPrinter(BoxPrinter):
+    """A :class:`BoxPrinter` that prints nothing (the data-parallel ranks
+    other than rank 0)."""
+
+    def rule(self, ch="-"):
+        pass
+
+    def line(self, text):
+        pass
+
+
+class NullWriter:
     def add_scalar(self, *a, **k):
         pass
 
@@ -88,5 +99,5 @@ def make_tb_writer(logdir):
     try:
         from torch.utils.tensorboard import SummaryWriter
     except ImportError:
-        return _NullWriter()
+        return NullWriter()
     return SummaryWriter(log_dir=logdir)

@@ -57,6 +57,11 @@ def sup_run_tag(args):
 
 
 def dump_config(paths, args):
+    """``config.json`` of the run's args (rank 0 alone writes it under
+    data parallelism)."""
+    from ..parallel import is_main
+    if not is_main():
+        return
     with open(os.path.join(paths.run, "config.json"), "w") as f:
         json.dump(
             {k: v for k, v in vars(args).items()},

@@ -14,7 +14,8 @@ predicts what hebbax's slider predicts on it (the class-1 probabilities
 agree within 1e-4, and no voxel's decision flips unless its probability
 lies that close to the threshold); ``--load_weights`` loads every
 parameter, the head included; the CLIs raise without CUDA unless
-``--device cpu`` is given, and on flags whose path is not ported.
+``--device cpu`` is given; ``train_sup_3d --dp_devices 2`` on 2 gloo CPU
+ranks logs hebbax's ``--dp_devices 2`` losses.
 """
 
 import csv
@@ -67,6 +68,11 @@ def _argv(synth, tmp_path):
             "-b", "2", "-e", "2", "-w", "1", "--validate_iter", "1",
             "--patch_size", PATCH, "--samples_per_volume_train", "2",
             "--samples_per_volume_val", "2", "--num_workers", "1"]
+
+
+def _read_csv(path):
+    with open(path) as f:
+        return list(csv.DictReader(f))
 
 
 def _test_argv(synth, run):
@@ -225,13 +231,52 @@ def test_device_flag_raises_without_cuda(synth, tmp_path):
                                   ["--dp_devices", "2"],
                                   ["--resume", "1"],
                                   ["--profile_dir", "prof"]])
-def test_unported_flags_raise(flag):
-    """Only ``--dp_devices != 1`` is left unported: it raises, and the
-    flags ported since (``--dtype bfloat16``, ``--resume``,
-    ``--profile_dir``) pass."""
+def test_unported_flags_raise(flag, synth, tmp_path, capfd):
+    """Every flag is ported: ``check_ported`` passes ``--dtype bfloat16``,
+    ``--resume`` and ``--profile_dir``.  ``--dp_devices 2`` runs
+    ``train_sup_3d --load_weights`` of a hebbax ``unet3d_min`` init on 2
+    gloo CPU ranks end to end (16^3 patches, 6 per epoch in batches of 3
+    padded to 4, SGD lr 1e-3, 2 epochs so that epoch 2 trains) and hebbax's
+    ``train_sup_3d --dp_devices 2`` on the same flags over ``make_mesh(2)``:
+    rank 0 alone prints and writes the logs and ``last.ckpt``, and the two
+    ``train_log.csv`` / ``val_log.csv`` losses agree within rtol 1e-4 (the
+    parity tests' loss tolerance); on the card, ``--dp_devices`` above the
+    visible cards raises naming both numbers."""
     args = common3d.base_parser_3d().parse_args(flag)
-    if flag[0] == "--dp_devices":
-        with pytest.raises(NotImplementedError):
-            common.check_ported(args)
-    else:
+    if flag[0] != "--dp_devices":
         common.check_ported(args)
+        return
+    over = max(2, torch.cuda.device_count() + 1)
+    args = common3d.base_parser_3d().parse_args(["--dp_devices", str(over)])
+    visible = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"--dp_devices {over}: only "
+                                         f"{visible} CUDA cards"):
+        common.check_ported(args)
+    from hebbax.cli import train_sup_3d as j_finetune
+    jm = j_get_network("unet3d_min", 1, 2)
+    variables = jax.tree_util.tree_map(np.asarray, jm.init(
+        jax.random.PRNGKey(6), jnp.zeros((1, 16, 16, 16, 1)), train=False))
+    snap = jckpt.save_snapshot(variables, str(tmp_path / "snap"))
+    flags = ["--path_dataset", synth, "-n", "unet3d_min", "-b", "3", "-e",
+             "2", "-w", "1", "-l", "1e-3", "--validate_iter", "1",
+             "--patch_size", PATCH, "--samples_per_volume_train", "3",
+             "--samples_per_volume_val", "2", "--num_workers", "1",
+             "--regime", "50", "--load_weights", snap, "--dp_devices", "2"]
+    args = finetune.add_args(common3d.base_parser_3d()).parse_args(
+        flags + ["--device", "cpu", "--path_root_exp",
+                 str(tmp_path / "port")])
+    capfd.readouterr()
+    common.train(finetune.build, args, timeout=60, deadline=300)
+    out = capfd.readouterr().out
+    assert out.count("Epoch 2/2") == 1 and out.count("Training done") == 1
+    j_finetune.main(flags + ["--path_root_exp", str(tmp_path / "hebbax")])
+    tail = os.path.join("Atrial", "semi_sup", "unet3d_min", "inv_temp-1",
+                        "regime-50", "run-0")
+    port = os.path.join(str(tmp_path / "port"), tail)
+    ref = os.path.join(str(tmp_path / "hebbax"), tail)
+    assert os.path.exists(os.path.join(port, "checkpoints", "last.ckpt"))
+    for log in ("train_log.csv", "val_log.csv"):
+        got = [float(r["loss"]) for r in _read_csv(os.path.join(port, log))]
+        want = [float(r["loss"]) for r in _read_csv(os.path.join(ref, log))]
+        assert len(got) == len(want) == 2
+        np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=log)

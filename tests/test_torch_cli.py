@@ -133,15 +133,41 @@ def test_device_flag_raises_without_cuda():
 @pytest.mark.parametrize("flag", [["--dtype", "bfloat16"],
                                   ["--dp_devices", "2"],
                                   ["--resume", "1"]])
-def test_unported_flags_raise(flag):
-    """Only ``--dp_devices != 1`` is left unported: it raises, and the
-    flags ported since (``--dtype bfloat16``, ``--resume``) pass."""
+def test_unported_flags_raise(flag, synth, tmp_path, capfd):
+    """Every flag is ported: ``check_ported`` passes ``--dtype bfloat16``
+    and ``--resume``.  ``--dp_devices 2`` runs ``train_sup_2d`` end to end
+    on 2 gloo CPU ranks (one epoch, 32x32, batches of 3 padded to 4): rank
+    0 alone prints, and the run's ``train_log.csv``, ``val_log.csv`` and
+    ``last.ckpt`` are written; on the card, ``--dp_devices`` above the
+    visible cards raises naming both numbers."""
     args = common.base_parser_2d().parse_args(flag)
-    if flag[0] == "--dp_devices":
-        with pytest.raises(NotImplementedError):
-            common.check_ported(args)
-    else:
+    if flag[0] != "--dp_devices":
         common.check_ported(args)
+        return
+    over = max(2, torch.cuda.device_count() + 1)
+    args = common.base_parser_2d().parse_args(["--dp_devices", str(over)])
+    visible = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"--dp_devices {over}: only "
+                                         f"{visible} CUDA cards"):
+        common.check_ported(args)
+    args = finetune.add_args(common.base_parser_2d()).parse_args([
+        "--device", "cpu", "--path_dataset", synth, "--dataset_name",
+        "GlaS", "--path_root_exp", str(tmp_path / "runs"), "-n", "unet",
+        "--regime", "100", "-b", "3", "-e", "1", "-w", "1",
+        "--num_workers", "1", "--debug", "", "--dp_devices", "2"])
+    capfd.readouterr()
+    best = common.train(finetune.build, args, _small_loaders(args, 100),
+                        timeout=60, deadline=300)
+    out = capfd.readouterr().out
+    assert out.count("Epoch 1/1") == 1 and out.count("Training done") == 1
+    assert len(best) == 3 and all(np.isfinite(best))
+    run = os.path.join(str(tmp_path / "runs"), "GlaS", "fully_sup", "unet",
+                       "inv_temp-1", "regime-100", "run-0")
+    rows = _read_csv(os.path.join(run, "train_log.csv"))
+    assert [int(float(r["epoch"])) for r in rows] == [1]
+    assert np.isfinite(float(rows[0]["loss"]))
+    assert os.path.exists(os.path.join(run, "val_log.csv"))
+    assert os.path.exists(os.path.join(run, "checkpoints", "last.ckpt"))
 
 
 def test_port_imports_no_jax():
@@ -167,7 +193,7 @@ def test_port_imports_no_jax():
         "import hebbax_torch.cli.test_snn_2d, hebbax_torch.models.raddino\n"
         "import hebbax_torch.cli.train_semi_raddino_decoder_2d\n"
         "import hebbax_torch.cli.test_raddino_decoder_2d\n"
-        "import hebbax_torch.ops.augment_device\n"
+        "import hebbax_torch.ops.augment_device, hebbax_torch.parallel\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'hebbax'))\n"

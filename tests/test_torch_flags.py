@@ -1,7 +1,9 @@
 """The run flags the port took over from hebbax in one slice, on the CPU:
 ``--resume``, ``--profile_dir``, ``--device_augment``, ``--init_weights
 xavier|normal|orthogonal``, ``--loss bce|bcebound``, and which CLIs accept
-them (``--dp_devices != 1`` still raises).
+them: every trainer CLI takes them, and runs end to end with ``--device
+cpu --dp_devices 2`` (one epoch, batches of 3 padded to 4 over 2 gloo
+ranks), while ``--dp_devices`` above the visible cards raises.
 
 * resume: the state round trip (parameters, BN statistics, Adam's
   moments and step, SGD's momentum, both members of a dual state, the
@@ -506,13 +508,43 @@ def test_aux_weighted_loss_matches_hebbax(loss):
 PORTED = ["--dtype", "bfloat16", "--resume", "1", "--profile_dir", "p",
           "--init_weights", "xavier", "--loss", "bcebound"]
 
+# cli -> (argv, build arguments after ``args``; the 2D loaders go in at
+# their place) of its ``--dp_devices 2`` run
+DP_RUNS = {
+    "pretrain_hebbian_unsup_2d": lambda s, t: (
+        _argv2d(s, t, 1) + ["-b", "3", "-n", "unet", "--exclude",
+                            "out_conv"], ()),
+    "train_sup_2d": lambda s, t: (
+        _argv2d(s, t, 1) + ["-b", "3", "-n", "unet", "--regime", "100"], ()),
+    "train_snn_sup_2d": lambda s, t: (
+        _argv2d(s, t, 1) + ["-b", "3", "--regime", "100"], ()),
+    "train_semi_2d": lambda s, t: (
+        _argv2d(s, t, 1) + ["-b", "3", "-n", "unet", "--regime", "50"],
+        ("em",)),
+    "pretrain_unsup_2d": lambda s, t: (
+        _argv2d(s, t, 1) + ["-b", "3"], ("vae",)),
+    "train_semi_raddino_decoder_2d": lambda s, t: (
+        _argv2d(s, t, 1) + ["-b", "3", "--regime", "50"],
+        (28, dict(dim=48, depth=2))),
+    "pretrain_hebbian_unsup_3d": lambda s, t: (
+        _argv3d(s, t, 1) + ["-b", "3", "--exclude", "conv"], ()),
+    "train_sup_3d": lambda s, t: (
+        _argv3d(s, t, 1) + ["-b", "3", "--regime", "50"], ()),
+    "train_semi_3d": lambda s, t: (
+        _argv3d(s, t, 1) + ["-b", "3", "--regime", "50"], ("em", None)),
+    "pretrain_unsup_3d": lambda s, t: (
+        _argv3d(s, t, 1) + ["-b", "3", "-n", "unet_ddpm",
+                            "--timestamp_diffusion", "8"],
+        ("superdiff", None)),
+}
+
 
 @pytest.mark.parametrize("cli", [
     "pretrain_hebbian_unsup_2d", "train_sup_2d", "train_snn_sup_2d",
     "train_semi_2d", "pretrain_unsup_2d", "train_semi_raddino_decoder_2d",
     "pretrain_hebbian_unsup_3d", "train_sup_3d", "train_semi_3d",
     "pretrain_unsup_3d"])
-def test_cli_accepts_the_ported_flags(cli):
+def test_cli_accepts_the_ported_flags(cli, synth2d, synth3d, tmp_path):
     is3d = cli.endswith("3d")
     parser = (common3d.base_parser_3d() if is3d
               else common.base_parser_2d())
@@ -527,9 +559,42 @@ def test_cli_accepts_the_ported_flags(cli):
     args = parser.parse_args(PORTED + extra)
     common.check_ported(args)
     assert common.model_dtype(args) is torch.bfloat16
-    args = parser.parse_args(["--dp_devices", "2"])
-    with pytest.raises(NotImplementedError, match="dp_devices"):
+    over = max(2, torch.cuda.device_count() + 1)
+    args = parser.parse_args(["--dp_devices", str(over)])
+    visible = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"--dp_devices {over}: only "
+                                         f"{visible} CUDA cards"):
         common.check_ported(args)
+    # end to end on 2 gloo CPU ranks: one epoch at 32x32 (16^3 in 3D)
+    synth = synth3d if is3d else synth2d
+    argv, build_args = DP_RUNS[cli](synth, tmp_path)
+    parser = (common3d.base_parser_3d() if is3d
+              else common.base_parser_2d())
+    if cli == "train_snn_sup_2d":
+        parser = mod.add_args(common.base_parser_2d({"network": "snn_vgg"}))
+    elif cli in ("train_semi_2d", "train_semi_3d", "pretrain_unsup_2d",
+                 "pretrain_unsup_3d"):
+        parser = mod.add_args(parser, build_args[0])
+    else:
+        parser = mod.add_args(parser)
+    args = parser.parse_args(argv + ["--dp_devices", "2"])
+    if not is3d:
+        if cli in ("train_semi_2d", "train_semi_raddino_decoder_2d"):
+            loaders = _semi_loaders(args)
+        else:
+            loaders = _sup_loaders(args)
+        build_args = (*build_args[:1], loaders, *build_args[1:]) \
+            if cli in ("train_semi_2d", "pretrain_unsup_2d") \
+            else (loaders, *build_args)
+    best = common.train(mod.build, args, *build_args, timeout=60,
+                        deadline=300)
+    assert len(best) == 3 and all(np.isfinite(best))
+    runs = [d for d, _, files in os.walk(str(tmp_path)) if
+            "train_log.csv" in files]
+    assert len(runs) == 1, runs
+    assert os.path.exists(os.path.join(runs[0], "checkpoints", "last.ckpt"))
+    assert all(np.isfinite(float(r["loss"])) for r in csv.DictReader(
+        open(os.path.join(runs[0], "train_log.csv"))))
 
 
 def test_model_dtype_names():
