@@ -198,8 +198,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    world-size-1 NCCL group equal to the plain step to the bit (cuDNN
    deterministic), with one NCCL all-reduce; one ``data_parallel_path``
    line carries them;
-13. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
-   urpc_pretrain, cct_pretrain and the paths of 6 to 12), the card's
+13. multi-class metrics, the CCT options and the delta dtype: (ag) a
+   3-class copy of the synthetic set (``GlaS3``, registered in this
+   process; class 2 on the right half of each disc):
+   ``pretrain_hebbian_unsup_2d -n unet`` (swta_t, 4 steps: K1 22 launches
+   per step), ``train_sup_2d --load_hebbian_weights`` validated through
+   the confusion accumulator on the card (the snapshot stores no
+   threshold), the card's confusion histogram of the validation logits
+   equal to the CPU's on the same logits, ``test_2d --threshold 0.5``
+   (finite Jaccard / Dice); (ah) ``unet_cct_s2d_batched``: its Hebbian
+   pretraining runs hebbax's unfolded serial ``unet_cct`` (K1 58 per
+   step), its own Hebbian training forward launches K1 22 times (the 12
+   decoder sites at batch 4N), one ``train_semi_2d cct`` step, an eval
+   forward equal to ``unet_cct``'s (1e-5 of max|logit|), K1 within TOL
+   of its plain version at the 4N sites; (ai) one CCT step of
+   ``unet3d_cct_s2d_rc`` and ``vnet_cct_s2d_rc`` against ``unet3d_cct``
+   and ``vnet_cct`` from the same state and draws at batch 1, 96x96x80:
+   grads within 1e-6 of max|grad|, BN running statistics equal to the
+   bit, the peak memory and the steady step times (``measure_step``) of
+   each; (aj) the composed 3D delta at (j)'s 22 sites in float32 and in
+   bfloat16 (``HEBBAX_DELTA_DTYPE``'s arithmetic), both timed, bf16's
+   error against float32; one ``tail_path`` line carries them;
+14. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
+   urpc_pretrain, cct_pretrain and the paths of 6 to 13), the card's
    name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
@@ -3304,6 +3325,405 @@ def phase_dp_cards(items, data_root):
                   cuda_collectives=ranks[0].get("cuda_collectives"))
     return record
 
+
+# -- 13: multi-class metrics, the CCT options, the delta dtype ----------------
+
+MC_DATASET, MC_CLASSES = "GlaS3", 3
+RC_NAMES = (("unet3d_cct", "unet3d_cct_s2d_rc"),
+            ("vnet_cct", "vnet_cct_s2d_rc"))
+RC_GRAD_TOL = 1e-6              # of max|grad|: the recompute is exact
+BATCHED_EVAL_TOL = 1e-5         # of max|logit|: one decode of 4N, eval
+
+
+def register_multiclass_dataset():
+    """``GlaS3``: GlaS with 3 classes, registered in this process only
+    (hebbax has no multi-class dataset either)."""
+    from hebbax_torch.config import datasets
+    datasets._CONFIG[MC_DATASET] = dict(
+        datasets.dataset_cfg("GlaS"), NUM_CLASSES=MC_CLASSES,
+        PALETTE=[0, 0, 0, 255, 255, 255, 255, 0, 0])
+
+
+def three_class_items(items):
+    """The synthetic items with class 2 on the right half of each disc."""
+    out = {}
+    for split, rows in items.items():
+        out[split] = []
+        for name, img, mask in rows:
+            m = mask.copy()
+            m[:, m.shape[1] // 2:] *= 2
+            out[split].append((name, img, m))
+    return out
+
+
+def cli_base_mc(device):
+    return [a if a != "GlaS" else MC_DATASET for a in cli_base(device)]
+
+
+def phase_multiclass(items, device="0"):
+    """(ag) A 3-class run of the main path: ``pretrain_hebbian_unsup_2d
+    -n unet`` (swta_t, 4 steps: K1 22 launches per step), ``train_sup_2d
+    --load_hebbian_weights`` validated through the confusion accumulator
+    on the card (no threshold stored), ``test_2d --threshold 0.5``; the
+    card's confusion histogram of the validation logits equal to the
+    CPU's on the same logits; finite Jaccard / Dice."""
+    import torch
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import pretrain_hebbian_unsup_2d as pretrain
+    from hebbax_torch.cli import test_2d, train_sup_2d
+    from hebbax_torch.config.datasets import dataset_cfg, input_stats
+    from hebbax_torch.data import Loader
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.ops.metrics import ConfusionAccumulator
+    from hebbax_torch.utils.checkpoint import load_state_dict
+
+    register_multiclass_dataset()
+    items = three_class_items(items)
+    on = "cpu" if device == "cpu" else "cuda"
+    launches, record = {}, {}
+    args = pretrain.add_args(common.base_parser_2d()).parse_args(
+        cli_base_mc(device) + [
+            "-n", "unet", "--exclude", "out_conv", "--hebb_mode", "swta_t",
+            "--hebb_inv_temp", str(int(K_TEMP)), "--optimizer", "adam",
+            "-l", "1e-6"])
+    trainer = pretrain.build(args, make_loaders(items, args, 100))
+    times = []
+    trainer.train_step = timed_step(trainer.train_step, times)
+    kernels.SWTA_DELTA.launches = 0
+    trainer.run()
+    launches["mc_pretrain"] = kernels.SWTA_DELTA.launches
+    check(launches["mc_pretrain"] == 22 * len(times),
+          f"(ag) pretrain launched K1 {launches['mc_pretrain']} times in "
+          f"{len(times)} steps")
+    check(trainer.num_classes == MC_CLASSES, "(ag) not a 3-class run")
+    snap = os.path.join(trainer.paths.checkpoints, "last.ckpt")
+    record["pretrain"] = {"steps": len(times), "step_ms": times}
+
+    args = train_sup_2d.add_args(common.base_parser_2d()).parse_args(
+        cli_base_mc(device) + ["--load_hebbian_weights", snap,
+                               "--regime", "50"])
+    trainer = train_sup_2d.build(args, make_loaders(items, args, 50))
+    times = []
+    raw_step = trainer.train_step
+    trainer.train_step = timed_step(raw_step, times)
+    kernels.SWTA_DELTA.launches = 0
+    trainer.run()
+    launches["mc_sup"] = kernels.SWTA_DELTA.launches
+    losses, ok = finite_losses(trainer)
+    check(ok, f"(ag) fine-tune losses {losses}")
+    best = trainer.best_val
+    check(best[0] is None and all(np.isfinite(best[1:])),
+          f"(ag) best validation {best}")
+    _, meta = load_state_dict(os.path.join(trainer.paths.checkpoints,
+                                           "best_JI.ckpt"))
+    check(meta["threshold"] is None,
+          f"(ag) the snapshot stores threshold {meta['threshold']}")
+    # the confusion histogram of the validation logits, card vs CPU
+    acc_card, acc_cpu = (ConfusionAccumulator(MC_CLASSES),
+                         ConfusionAccumulator(MC_CLASSES))
+    for batch in trainer.loaders["val"]:
+        b = trainer.prep(batch)
+        logits = trainer.eval_step(b)["logits"]
+        acc_card.update(logits, b["mask"])
+        acc_cpu.update(logits.cpu(), b["mask"].cpu())
+    check(acc_card.hist.device.type == on, "(ag) histogram off the card")
+    check(torch.equal(acc_card.hist.cpu(), acc_cpu.hist),
+          "(ag) the card's confusion histogram differs from the CPU's")
+    ev = acc_card.finalize()
+    check(ev == acc_cpu.finalize(), "(ag) card and CPU metrics differ")
+    record["sup"] = {"steps": len(times), "step_ms": times,
+                     "best_val": best, "val_recomputed": list(ev),
+                     "histogram": acc_card.hist.cpu().tolist()}
+    run = trainer.paths.run
+    record["sup"]["steady_step_ms"] = steady_step_ms(trainer, raw_step)
+    del trainer, raw_step
+    release()
+
+    targs = test_2d.build_parser().parse_args(
+        ["--device", device, "--path_exp", run, "--dataset_name",
+         MC_DATASET, "--threshold", "0.5", "-n", "unet",
+         "--hebbian_pretrain", "1", "-b", str(BATCH), "--num_workers", "4"])
+    mean, std = input_stats(dataset_cfg(MC_DATASET), "image")
+    test_ds = array_dataset_class()(items["val"], mean, std, "test")
+    kernels.SWTA_DELTA.launches = 0
+    metrics = test_2d.run_test(targs, Loader(test_ds, BATCH,
+                                             num_workers=4))
+    launches["mc_test"] = kernels.SWTA_DELTA.launches
+    check(metrics["thresh"] is None and all(
+        np.isfinite(metrics[k]) for k in ("segm/dice", "segm/jaccard")),
+        f"(ag) test metrics {metrics}")
+    record["test"] = metrics
+    log(f"(ag) 3-class: K1 {launches}, best validation {best}, histogram "
+        f"card == CPU, test {metrics}")
+    return launches, record
+
+
+def phase_batched(card, items, images, device="0"):
+    """(ah) ``unet_cct_s2d_batched``.  ``pretrain_hebbian_unsup_2d -n
+    unet_cct_s2d_batched --exclude out_conv`` runs the unfolded serial
+    ``unet_cct``, as hebbax's CLI does (``pretrain_base_network``): K1 58
+    launches per step (4 steps at batch 32).  A Hebbian training forward
+    of the batched network itself (``get_network``) launches K1 22 times,
+    the 12 decoder sites at batch 4N = 128; then one ``train_semi_2d cct
+    -n unet_cct_s2d_batched`` step from the pretraining snapshot; an eval
+    forward equal to ``unet_cct``'s on the same weights (1e-5 of
+    max|logit|); K1 against its plain version at the 22 sites of a
+    batched training forward (TOL)."""
+    import torch
+    from hebbax_torch.cli import common
+    from hebbax_torch.cli import pretrain_hebbian_unsup_2d as pretrain
+    from hebbax_torch.cli import train_semi_2d
+    from hebbax_torch.hebb import kernels, rules
+    from hebbax_torch.hebb.spec import HebbSpec
+    from hebbax_torch.hebb.surgery import pop_deltas
+    from hebbax_torch.models import get_network
+    from hebbax_torch.utils.seeding import make_generator
+
+    net = "unet_cct_s2d_batched"
+    launches, record = {}, {}
+    args = pretrain.add_args(common.base_parser_2d()).parse_args(
+        cli_base(device) + [
+            "-n", net, "--exclude", "out_conv", "--hebb_mode", "swta_t",
+            "--hebb_inv_temp", str(int(K_TEMP)), "--optimizer", "adam",
+            "-l", "1e-6"])
+    trainer = pretrain.build(args, make_loaders(items, args, 100))
+    check(args.network == "unet_cct"
+          and not trainer.state.model.batched_aux,
+          f"(ah) pretraining ran {args.network}, not hebbax's unet_cct")
+    times = []
+    trainer.train_step = timed_step(trainer.train_step, times)
+    kernels.SWTA_DELTA.launches = 0
+    trainer.run()
+    launches["batched_pretrain"] = kernels.SWTA_DELTA.launches
+    check(launches["batched_pretrain"] == 58 * len(times),
+          f"(ah) pretrain launched K1 {launches['batched_pretrain']} times "
+          f"in {len(times)} steps, expected 58 per step")
+    losses, ok = finite_losses(trainer)
+    check(ok, f"(ah) pretrain losses {losses}")
+    snap = os.path.join(trainer.paths.checkpoints, "last.ckpt")
+    record["pretrain"] = {"network": args.network, "steps": len(times),
+                          "step_ms": times}
+    del trainer
+    release()
+
+    # the batched network's own Hebbian training forward
+    spec = HebbSpec(mode="swta_t", k=K_TEMP, exclude=("out_conv",))
+    models = [get_network(n, 3, 2, hebb=spec, device=card,
+                          generator=make_generator(4),
+                          perturb_generator=make_generator(5, card))
+              for n in ("unet_cct", net)]
+    models[1].load_state_dict(models[0].state_dict())
+    # eval, before a training forward moves the statistics: the batched
+    # name equals unet_cct on the same weights
+    outs = []
+    for m in models:
+        m.eval()
+        with torch.no_grad():
+            outs.append(m(images)[0])
+    scale = float(outs[0].abs().max())
+    err = float((outs[1] - outs[0]).abs().max())
+    check(err <= BATCHED_EVAL_TOL * scale,
+          f"(ah) batched eval differs from unet_cct by {err} of {scale}")
+    batches = []
+    orig = kernels.swta_delta
+
+    def seen(w, x, *a, **k):
+        batches.append(x.shape[0])
+        return orig(w, x, *a, **k)
+    kernels.swta_delta = seen
+    models[1].train()
+    kernels.SWTA_DELTA.launches = 0
+    try:
+        with torch.no_grad():
+            models[1](images)
+        torch.cuda.synchronize()
+    finally:
+        kernels.swta_delta = orig
+    launches["batched_forward"] = kernels.SWTA_DELTA.launches
+    n = images.shape[0]
+    check(launches["batched_forward"] == 22
+          and sorted(batches) == [n] * 10 + [4 * n] * 12,
+          f"(ah) batched forward: K1 {launches['batched_forward']}, "
+          f"delta batches {sorted(batches)}")
+    pop_deltas(models[1])
+
+    sargs = train_semi_2d.add_args(common.base_parser_2d(), "cct")\
+        .parse_args(cli_base(device) + [
+            "-n", net, "--load_hebbian_weights", snap, "--hebb_inv_temp",
+            str(int(K_TEMP)), "--regime", "50", "--optimizer", "sgd", "-l",
+            "0.5", "--loss", "dice", "--unsup_weight", "5"])
+    trainer = train_semi_2d.build(sargs, "cct",
+                                  make_semi_loaders(items, sargs, 50))
+    check(trainer.state.model.batched_aux, "(ah) the CCT run is not batched")
+    kernels.SWTA_DELTA.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_runner(trainer, trainer.train_step)()
+    torch.cuda.synchronize()
+    record["cct_step_ms"] = (time.perf_counter() - t0) * 1e3
+    launches["batched_cct"] = kernels.SWTA_DELTA.launches
+    check(launches["batched_cct"] == 0, "(ah) the CCT step launched K1")
+    check(all(bool(torch.isfinite(p).all())
+              for p in trainer.state.model.parameters()),
+          "(ah) the CCT step left a non-finite parameter")
+    del trainer
+    release()
+
+    # K1 against its plain version at the sites of a batched forward
+    sites = capture_sites(models[1], images)
+    check(len(sites) == 22 and sum(x.shape[0] == 4 * n
+                                   for _, _, x, _, _ in sites) == 12,
+          f"(ah) {len(sites)} sites")
+    worst = 0.0
+    for name, w, x, y, pad in sites:
+        plain = rules.swta_conv_delta(w, x, y, K_TEMP, pad)
+        got = kernels.SWTA_DELTA(w, x, y, K_TEMP, pad)
+        rel = float((got - plain).abs().max()) / float(plain.abs().max())
+        check(np.isfinite(rel) and rel <= TOL,
+              f"(ah) {name}: K1 vs plain {rel} of max|delta|")
+        worst = max(worst, rel)
+    record.update(eval_err=err, eval_scale=scale, k1_vs_plain_rel=worst,
+                  sites_4n=12)
+    log(f"(ah) {net}: K1 {launches}, eval vs unet_cct {err:.3e} of "
+        f"{scale:.3f}, K1 vs plain at the 4N sites {worst:.3e}")
+    del models, sites
+    release()
+    return launches, record
+
+
+def cct_3d_step(model, x, mask):
+    """One CCT training forward and backward of a 3D CCT network (dice on
+    the main output, the perturbed outputs' softmax MSE to it): returns
+    the grads."""
+    import torch
+    from hebbax_torch.ops.losses import dice_loss, softmax_mse_loss
+
+    outs = model(x)
+    loss = dice_loss(outs[0], mask) + sum(
+        softmax_mse_loss(a, outs[0]).mean() for a in outs[1:])
+    return torch.autograd.grad(loss, [p for p in model.parameters()])
+
+
+def phase_rc(card):
+    """(ai) One CCT step of ``unet3d_cct_s2d_rc`` / ``vnet_cct_s2d_rc``
+    against the plain ``unet3d_cct`` / ``vnet_cct`` from the same state
+    and draws at batch 1, 96x96x80: the grads within RC_GRAD_TOL of
+    max|grad|, the BN running statistics equal to the bit, the peak
+    memory of each, and the steady step times (``measure_step``)."""
+    import torch
+    from hebbax_torch.models import get_network
+    from hebbax_torch.utils.seeding import make_generator
+    from hebbax_torch.utils.timing import measure_step
+
+    on = torch.device(card).type
+    x = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        (1, 1) + PATCH).astype(np.float32)).to(card)
+    mask = (x[:, 0] > 0.5).long()
+    record = {}
+    for plain_name, rc_name in RC_NAMES:
+        res = {}
+        for name in (plain_name, rc_name):
+            model = get_network(name, 1, 2, device=card,
+                                generator=make_generator(6),
+                                dropout_generator=make_generator(7, card),
+                                perturb_generator=make_generator(8, card))
+            model.train()
+            release()
+            reset_peak(on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads = cct_3d_step(model, x, mask)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            peak = peak_gib(on)
+            stats = {k: v.clone() for k, v in model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+
+            def step(s, model=model):
+                return s + 1, cct_3d_step(model, x, mask)
+            steady = measure_step(step, 0, n1=1, n2=3, warmup=1) * 1e3
+            res[name] = dict(grads=grads, stats=stats, peak_gib=peak,
+                             first_ms=first_ms, steady_ms=steady)
+            del model, step
+        a, b = res[plain_name], res[rc_name]
+        scale = max(float(g.abs().max()) for g in a["grads"])
+        err = max(float((u - v).abs().max())
+                  for u, v in zip(a["grads"], b["grads"]))
+        check(err <= RC_GRAD_TOL * scale,
+              f"(ai) {rc_name} grads differ from {plain_name}'s by {err} "
+              f"of {scale}")
+        check(all(torch.equal(a["stats"][k], b["stats"][k])
+                  for k in a["stats"]),
+              f"(ai) {rc_name}: BN statistics differ from {plain_name}'s")
+        record[rc_name] = {
+            "grad_max_abs_diff": err, "grad_scale": scale,
+            "stats_equal": True,
+            **{f"{k}_{tag}": r[k] for tag, r in (("plain", a), ("rc", b))
+               for k in ("peak_gib", "first_ms", "steady_ms")}}
+        log(f"(ai) {rc_name} vs {plain_name}: grads {err:.3e} of "
+            f"{scale:.3e}, BN statistics equal; peak GiB "
+            f"{a['peak_gib']} -> {b['peak_gib']}, steady step ms "
+            f"{a['steady_ms']:.2f} -> {b['steady_ms']:.2f}")
+        del res, a, b
+        release()
+    return record
+
+
+def phase_delta_dtype(card):
+    """(aj) The composed swta delta at the 22 sites of a ``unet3d``
+    training forward (batch 1, 96x96x80, as (j)) in float32 and in
+    bfloat16 (``HEBBAX_DELTA_DTYPE``'s arithmetic: bf16 copies of w, x,
+    y): both timed with CUDA events, bf16's error against float32."""
+    import torch
+    from hebbax_torch.hebb import rules
+
+    model = hebbian_unet3d(card, seed=3)
+    images = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (1, 1) + PATCH).astype(np.float32)).to(card)
+    sites = capture_sites(model, images)
+    check(len(sites) == 22, f"(aj) {len(sites)} unet3d sites")
+    rows = []
+    for name, w, xs, ys, _ in sites:
+        mod = model.get_submodule(name)
+        bf = [t.to(torch.bfloat16) for t in (w, xs, ys)]
+
+        def delta(ops, dtype, mod=mod):
+            return rules.compute_delta(mod.spec, *ops, mod.padding,
+                                       mod.transpose, mod.stride,
+                                       dtype=dtype).float()
+        ref = delta((w, xs, ys), torch.float32)
+        got = delta(bf, torch.bfloat16)
+        rel = float((got - ref).abs().max()) / float(ref.abs().max())
+        check(np.isfinite(rel), f"(aj) {name}: non-finite bf16 delta")
+        f32_ms = cuda_time_ms(lambda: delta((w, xs, ys), torch.float32),
+                              warmup=1, iters=5)
+        bf16_ms = cuda_time_ms(lambda: delta(bf, torch.bfloat16),
+                               warmup=1, iters=5)
+        rows.append(dict(site=name, f32_ms=f32_ms, bf16_ms=bf16_ms,
+                         bf16_rel_err=rel))
+    total = {k: sum(r[k] for r in rows) for k in ("f32_ms", "bf16_ms")}
+    worst = max(r["bf16_rel_err"] for r in rows)
+    log(f"(aj) composed 3D delta over 22 sites: float32 "
+        f"{total['f32_ms']:.2f} ms, bfloat16 {total['bf16_ms']:.2f} ms, "
+        f"bf16 error up to {worst:.3e} of max|delta|")
+    del model, sites
+    release()
+    return {**total, "bf16_rel_err_max": worst, "sites": rows}
+
+
+def phase_tail(card, items, images, device="0"):
+    """Phase 13: (ag)-(aj) (``card`` the torch device, ``device`` the
+    CLIs' ``--device``); returns the launches by path and the
+    ``tail_path`` record."""
+    l_ag, r_ag = phase_multiclass(items, device)
+    l_ah, r_ah = phase_batched(card, items, images, device)
+    r_ai = phase_rc(card)
+    r_aj = phase_delta_dtype(card)
+    launches = {**l_ag, **l_ah}
+    return launches, {"launches": launches, "ag": r_ag, "ah": r_ah,
+                      "ai": r_ai, "aj": r_aj}
+
+
 def profile_summary(profiled):
     return {k: {"device_ms": v["device_ms"], "busy_share": v["busy_share"],
                 "groups_ms": v["groups_ms"], "top_ms": v["top_ms"][:3]}
@@ -3421,6 +3841,11 @@ def main():
     log("data_parallel_path " + json.dumps(record_12))
     lap(12)
 
+    l_13, record_13 = phase_tail(device, items, images)
+    launches.update(l_13)
+    log("tail_path " + json.dumps(record_13))
+    lap(13)
+
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -3437,7 +3862,7 @@ def main():
             "superpix_pretrain", "superdiff_pretrain", "em_vae",
             "em_superpix", "test_em_vae", "test_em_superpix",
             "pretrain_3d", "sup_3d", "test_3d", *l_8, *l_9, *l_10,
-            *l_11, *l_12)},
+            *l_11, *l_12, *l_13)},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],

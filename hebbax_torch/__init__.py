@@ -12,14 +12,17 @@ Same layout as ``hebbax`` so each module's counterpart is easy to find:
   models/   UNet2D, UNetURPC2D, UNetCCT2D, the unsupervised baselines
             (UNetVAE2D, UNetSuperpix2D, DDPMUNet), UNet3D, UNet3DDTC,
             UNet3DCCT, UNet3DURPC, VNet, VNetCCT, VNetDTC, their blocks,
-            CCT perturbations, the network registry
-  ops/      losses, threshold-sweep metrics, HD95/ASSD, signed distance
-            maps, dropout, EMA, diffusion schedules and losses, superpixel
-            pseudo-masks, 3D post-processing
+            CCT perturbations and the recomputed (``_rc``) / batched
+            (``_batched``) CCT decoders, the network registry
+  ops/      losses, threshold-sweep and confusion metrics, HD95/ASSD,
+            signed distance maps, dropout, EMA, diffusion schedules and
+            losses, superpixel pseudo-masks, 3D post-processing, the
+            single-level wavelet transforms
   engine/   train state, train/eval/probe-pretraining steps, the epoch
             harness, the semi-supervised steps and trainers (EM, UAMT,
             CPS, URPC, CCT, DTC), the 3D sliding-window slider
-  utils/    seeding, run dirs, logging sinks, PNG writer, HBAXCKP1 snapshots
+  utils/    seeding, run dirs, logging sinks, PNG writer, HBAXCKP1
+            snapshots, the replay of a recomputed region, step timing
   cli/      ``python -m hebbax_torch.cli.<name>`` entry points
   bridge.py parameter map between a flax variable tree and a state_dict
 

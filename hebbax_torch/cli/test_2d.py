@@ -4,7 +4,8 @@ Loads best_JI/last snapshot from <path_exp>/checkpoints into the network
 named by ``-n`` (a deep4 network is tested on its primary output), reuses
 the stored threshold, computes Dice/Jaccard at that threshold plus HD95/ASSD,
 saves paletted PNG predictions, and writes test.csv with the reference's
-column names.
+column names.  A dataset of N != 2 classes takes hebbax's confusion branch
+(:func:`evaluate_test`) and needs ``--threshold`` for HD95/ASSD.
 
     python -m hebbax_torch.cli.test_2d --path_exp <run> --hebbian_pretrain 1
 """
@@ -52,15 +53,48 @@ def build_parser():
     return p
 
 
-def evaluate_test(probs_fg, masks, threshold):
-    """Binary pixel metrics at the stored threshold."""
-    pred = (probs_fg > threshold).astype(np.uint8)
-    t = masks.astype(np.uint8)
-    tp = float(np.sum(pred * t))
-    union = float(np.sum(np.abs(pred.astype(np.int64) - t.astype(np.int64))))
-    ji = tp / (union + tp) if union + tp else 0.0
-    dc = 2 * tp / (union + 2 * tp) if union + 2 * tp else 0.0
-    return threshold, ji, dc
+def evaluate_test(probs_fg, masks, threshold, num_classes=2):
+    """Pixel metrics at the stored threshold (binary) or from a confusion
+    histogram (``num_classes`` != 2, no threshold).
+
+    The multi-class branch is hebbax's (``hebbax/cli/test_2d.py:58-66``):
+    it reads its input as a class map and casts it to int64, but
+    :func:`run_test` passes the class-1 probabilities, as hebbax's caller
+    does, so the predicted class is 1 only where p1 == 1 and 0 elsewhere.
+    The port reproduces those numbers."""
+    if num_classes == 2:
+        pred = (probs_fg > threshold).astype(np.uint8)
+        t = masks.astype(np.uint8)
+        tp = float(np.sum(pred * t))
+        union = float(np.sum(np.abs(pred.astype(np.int64)
+                                    - t.astype(np.int64))))
+        ji = tp / (union + tp) if union + tp else 0.0
+        dc = 2 * tp / (union + 2 * tp) if union + 2 * tp else 0.0
+        return threshold, ji, dc
+    pred = probs_fg.astype(np.int64).ravel()
+    t = masks.astype(np.int64).ravel()
+    hist = np.bincount(t * num_classes + pred,
+                       minlength=num_classes ** 2).reshape(num_classes,
+                                                           num_classes)
+    diag = np.diag(hist).astype(float)
+    s0, s1 = hist.sum(axis=0), hist.sum(axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ji = float(np.nanmean(diag / (s1 + s0 - diag)))
+        dc = float(np.nanmean(2 * diag / (s1 + s0)))
+    return None, ji, dc
+
+
+def check_distance_threshold(threshold, if_mask):
+    """HD95 / ASSD threshold the class-1 probabilities at ``threshold``.
+    A multi-class run's snapshot stores none, and hebbax's tester then
+    fails comparing the probabilities with None (a TypeError after the
+    forward passes); the port refuses before them, asking for
+    ``--threshold``."""
+    if if_mask and threshold is None:
+        raise ValueError(
+            "the snapshot stores no threshold (a multi-class run's has "
+            "none): pass --threshold for HD95 / ASSD of the class-1 "
+            "probabilities")
 
 
 def run_test(args, loader=None):
@@ -68,9 +102,6 @@ def run_test(args, loader=None):
     ``<path_dataset>/val`` when given.  Returns the metrics dict."""
     device = resolve_device(args.device)
     cfg = dataset_cfg(args.dataset_name)
-    if cfg["NUM_CLASSES"] != 2:
-        raise NotImplementedError(
-            "multi-class test metrics are not ported yet")
     init_seeds(args.seed)
     printer = BoxPrinter(cfg["NUM_CLASSES"])
 
@@ -79,6 +110,7 @@ def run_test(args, loader=None):
         os.path.join(args.path_exp, "checkpoints", f"{name}.ckpt"))
     threshold = (meta.get("threshold")
                  if args.threshold is None else args.threshold)
+    check_distance_threshold(threshold, args.if_mask)
 
     hebb = None
     if args.hebbian_pretrain and meta.get("hebb_params"):
@@ -128,7 +160,7 @@ def run_test(args, loader=None):
     if args.if_mask:
         probs = np.concatenate(probs_all)
         masks = np.concatenate(masks_all)
-        pixel = evaluate_test(probs, masks, threshold)
+        pixel = evaluate_test(probs, masks, threshold, cfg["NUM_CLASSES"])
         dist = evaluate_distance_binary(probs, masks, [threshold])
         save_preds(probs, threshold, names_all, path_seg_results,
                    cfg["PALETTE"])

@@ -27,7 +27,8 @@ from ..utils.checkpoint import load_state_dict
 from ..utils.logging import write_csv
 from ..utils.seeding import make_generator
 from .common import resolve_device
-from .test_2d import build_parser, evaluate_test
+from .test_2d import (build_parser, check_distance_threshold,
+                      evaluate_test)
 from .train_semi_raddino_decoder_2d import (IMAGE_SIZE, frozen_encoder,
                                             make_decoder_eval_step,
                                             make_embed)
@@ -42,9 +43,6 @@ def run_test(args, loader=None, image_size=IMAGE_SIZE, encoder_kw=None):
     device = resolve_device(args.device)
     cfg = dataset_cfg(args.dataset_name)
     n_cls = cfg["NUM_CLASSES"]
-    if n_cls != 2:
-        raise NotImplementedError(
-            "multi-class test metrics are not ported yet")
     encoder, _ = load_hf_rad_dino_params(frozen_encoder(
         TESTER_ENCODER_SEED, device, image_size=image_size,
         **(encoder_kw or {})))
@@ -57,6 +55,7 @@ def run_test(args, loader=None, image_size=IMAGE_SIZE, encoder_kw=None):
     decoder.load_state_dict(state)
     threshold = (meta.get("threshold")
                  if args.threshold is None else args.threshold)
+    check_distance_threshold(threshold, True)
     forward = make_decoder_eval_step(decoder, make_embed(encoder,
                                                          image_size))
 
@@ -75,7 +74,7 @@ def run_test(args, loader=None, image_size=IMAGE_SIZE, encoder_kw=None):
         masks_all.append(batch["mask"])
     probs = np.concatenate(probs_all)
     masks = np.concatenate(masks_all)
-    pixel = evaluate_test(probs, masks, threshold)
+    pixel = evaluate_test(probs, masks, threshold, n_cls)
     dist = evaluate_distance_binary(probs, masks, [threshold])
     metrics = {"segm/dice": pixel[2], "segm/jaccard": pixel[1],
                "segm/asd": dist[1], "segm/95hd": dist[0],

@@ -203,17 +203,20 @@ class SwtaDeltaKernel:
 SWTA_DELTA = SwtaDeltaKernel()
 
 
-def swta_delta(w, x, y, k, padding, stride=1):
+def swta_delta(w, x, y, k, padding, stride=1, dtype=torch.float32):
     """SWTA delta of a forward conv: K1 for a 2D stride-1 same-size conv
     on CUDA tensors, its plain version for one on CPU tensors, the
-    composed rule for every other site on any device."""
+    composed rule (computing in ``dtype``) for every other site on any
+    device.  K1 and its plain version compute in float32 whatever
+    ``dtype`` is, on float32 copies of the operands (which a bfloat16
+    ``dtype`` has already rounded)."""
     nd = w.dim() - 2
     stride, padding = rules._tuple(stride, nd), rules._tuple(padding, nd)
     if nd != 2 or stride != (1, 1) or x.shape[2:] != y.shape[2:]:
-        return rules.swta_wgrad_delta(w, x, y, k, padding, stride)
+        return rules.swta_wgrad_delta(w, x, y, k, padding, stride, dtype)
     if x.is_cuda:
-        return SWTA_DELTA(w.contiguous(), x.contiguous(), y.contiguous(),
-                          k, padding)
+        return SWTA_DELTA(w.float().contiguous(), x.float().contiguous(),
+                          y.float().contiguous(), k, padding)
     if w.device.type == x.device.type == y.device.type == "cpu":
         return rules.swta_conv_delta(w, x, y, k, padding)
     raise ValueError(f"no swta_delta for tensors on {x.device}")

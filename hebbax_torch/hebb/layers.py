@@ -20,8 +20,10 @@ layer's path is not excluded, the layer
 flax's ``dtype=``: the float32 weight is normalized first, then weight
 and input are cast to the dtype and convolved, and the bias, cast too, is
 added after the conv in the dtype (two roundings, as hebbax's ``HConv``
-does).  The delta takes float32 copies of the raw weight, of the CAST
-input and of the output (hebbax's ``delta_compute_dtype``, float32).
+does).  The delta takes copies of the raw weight, of the CAST input and
+of the output in hebbax's delta dtype (``HEBBAX_DELTA_DTYPE``, float32 by
+default: :func:`rules.delta_compute_dtype`) and is kept in float32.  In a
+recomputed forward (a checkpointed CCT decoder) no delta is recorded.
 
 Weights are torch's: ``(O, I, *k)`` for a conv, padding applied natively by
 the conv; ``(I, O, *k)`` for a transpose conv, which never pads.  hebbax's
@@ -36,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel import world_size
+from ..utils import remat
 from . import rules
 from .spec import HebbSpec, spec_if_active
 
@@ -142,21 +145,32 @@ class HConv(nn.Module):
             x = x.to(dtype)
             y = self._apply_conv(x, w.to(dtype), None) + self.bias.to(
                 dtype).view((-1,) + (1,) * self.nd)
-        if spec is not None and self.training and spec.alpha != 0:
-            perm = None
-            if spec.conv_mode(self.transpose) == "contrastive":
-                # a permutation of the global batch under data parallelism
-                perm = self.draw_permutation(
-                    x.shape[0] * world_size()).to(x.device)
-            with torch.no_grad():
-                d = rules.compute_delta(spec, self.weight.detach(),
-                                        x.detach().float(),
-                                        y.detach().float(), self.padding,
-                                        self.transpose, self.stride,
-                                        bias=self.bias.detach().float(),
-                                        perm=perm)
-            self.delta = d if self.delta is None else self.delta + d
+        # a recomputed forward (a checkpointed CCT decoder) records
+        # nothing: its first run recorded the delta
+        if (spec is not None and self.training and spec.alpha != 0
+                and not remat.replaying()):
+            with remat.untracked():
+                self._record_delta(spec, x, y)
         return y
+
+    def _record_delta(self, spec, x, y):
+        """Add this forward's delta to ``self.delta`` (hebbax's ``sow``),
+        computed in ``HEBBAX_DELTA_DTYPE`` (:func:`rules.delta_compute_dtype`)
+        on copies of the raw weight, the input, the output and the bias,
+        and kept in float32."""
+        perm = None
+        if spec.conv_mode(self.transpose) == "contrastive":
+            # a permutation of the global batch under data parallelism
+            perm = self.draw_permutation(
+                x.shape[0] * world_size()).to(x.device)
+        ddt = rules.delta_compute_dtype()
+        with torch.no_grad():
+            d = rules.compute_delta(
+                spec, self.weight.detach().to(ddt), x.detach().to(ddt),
+                y.detach().to(ddt), self.padding, self.transpose,
+                self.stride, bias=self.bias.detach().to(ddt), perm=perm,
+                dtype=ddt).float()
+        self.delta = d if self.delta is None else self.delta + d
 
 
 class HConvTranspose(HConv):

@@ -6,7 +6,10 @@ Conventions: channels-first activations, conv weights ``(O, I, *k)``,
 transpose-conv weights ``(I, O, *k)`` (torch's layouts); ``x`` the
 UNPADDED layer input and ``y`` the conv output including its bias;
 ``padding`` is the forward conv's symmetric per-axis padding, ``stride``
-its per-axis stride (an int for all axes).  Every delta is float32.
+its per-axis stride (an int for all axes).  The composed rules compute in
+``dtype`` (float32 unless ``HEBBAX_DELTA_DTYPE`` says otherwise:
+:func:`delta_compute_dtype`); the plain version of the kernel,
+:func:`swta_conv_delta`, always in float32.
 
   swta   : r = softmax(k*y) over O;  dw = <r, x_patches> - (sum r) * w
   hpca   : Sanger's rule;            dw = <y, x_patches> - tril(y^T y) @ w
@@ -34,6 +37,7 @@ Only ``patchwise=False`` raises (dead code in the reference).
 """
 
 import itertools
+import os
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +49,25 @@ _CONV_WEIGHT = {2: torch.nn.grad.conv2d_weight,
 _CONV = {2: F.conv2d, 3: F.conv3d}
 _CONV_TRANSPOSE = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
 HPCA_T_CHUNK_3D = 32    # hebb3d's PARALLEL_CHANNELS: the 3D hpca_t tril
+
+
+_DELTA_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def delta_compute_dtype():
+    """The dtype of a Hebbian delta's arithmetic (hebbax's
+    ``delta_compute_dtype``): ``HEBBAX_DELTA_DTYPE``, float32 by default.
+    bfloat16 trades delta accuracy (hebbax states about 1e-2 relative)
+    for half the bytes of the composed rules' operands and bf16 tensor
+    cores.  It is a setting of the composed rules only:
+    a site of the CUDA kernel still takes the kernel, in float32, on
+    float32 copies of the rounded operands."""
+    name = os.environ.get("HEBBAX_DELTA_DTYPE", "float32")
+    if name not in _DELTA_DTYPES:
+        raise ValueError(f"HEBBAX_DELTA_DTYPE={name!r}; one of "
+                         f"{sorted(_DELTA_DTYPES)}")
+    return _DELTA_DTYPES[name]
 
 
 def _tuple(v, nd):
@@ -88,7 +111,7 @@ def swta_conv_delta(w, x, y, k, padding):
     return pos - r_sum[:, None, None, None] * w.float()
 
 
-def swta_wgrad_delta(w, x, y, k, padding, stride=1):
+def swta_wgrad_delta(w, x, y, k, padding, stride=1, dtype=torch.float32):
     """The swta delta of a forward conv of any rank and stride, composed
     as hebbax's ``swta_conv_delta``: softmax over the channels, the
     weight gradient of the conv (``torch.nn.grad.conv{2,3}d_weight``,
@@ -96,50 +119,51 @@ def swta_wgrad_delta(w, x, y, k, padding, stride=1):
 
     w (O, I, *k); x (N, I, *s) unpadded; y (N, O, *s') the conv output."""
     nd = x.dim() - 2
-    r = torch.softmax(k * y.float(), dim=1)
-    pos = _CONV_WEIGHT[nd](x.float(), w.shape, r, stride=_tuple(stride, nd),
+    r = torch.softmax(k * y.to(dtype), dim=1)
+    pos = _CONV_WEIGHT[nd](x.to(dtype), w.shape, r,
+                           stride=_tuple(stride, nd),
                            padding=_tuple(padding, nd))
     r_sum = r.sum(dim=(0,) + tuple(range(2, nd + 2)))          # (O,)
-    return pos - r_sum.view((-1,) + (1,) * (nd + 1)) * w.float()
+    return pos - r_sum.view((-1,) + (1,) * (nd + 1)) * w.to(dtype)
 
 
-def _gram(y):
-    """sum over the batch and the voxels of y y^T: (C, C), float32."""
-    yf = y.float().transpose(0, 1).reshape(y.shape[1], -1)
+def _gram(y, dtype=torch.float32):
+    """sum over the batch and the voxels of y y^T: (C, C), in ``dtype``."""
+    yf = y.to(dtype).transpose(0, 1).reshape(y.shape[1], -1)
     return yf @ yf.T
 
 
-def sanger_tril(o, device=None, chunk=None):
+def sanger_tril(o, device=None, chunk=None, dtype=torch.float32):
     """Lower-triangular (diagonal included) lateral-competition mask
     (hebbax's ``_sanger_tril``).  ``chunk`` makes it block-diagonal: the
     reference's 3D transpose layer builds its tril over local indices of
     32-channel chunks of the output axis, so the ordering resets every
     ``chunk`` channels."""
-    tril = torch.tril(torch.ones((o, o), dtype=torch.float32,
-                                 device=device))
+    tril = torch.tril(torch.ones((o, o), dtype=dtype, device=device))
     if chunk:
         idx = torch.arange(o, device=device) // chunk
-        tril = tril * (idx[:, None] == idx[None, :]).float()
+        tril = tril * (idx[:, None] == idx[None, :]).to(dtype)
     return tril
 
 
-def hpca_conv_delta(w, x, y, padding, stride=1, chunk=None):
-    """Sanger's rule on a forward conv, in float32:
+def hpca_conv_delta(w, x, y, padding, stride=1, chunk=None,
+                    dtype=torch.float32):
+    """Sanger's rule on a forward conv, in ``dtype``:
     dw = <y, x_patches> - (tril ⊙ y^T y) @ w, ``pos`` the weight gradient
     of the conv against y and the decay the (O, O) output Gram masked by
     :func:`sanger_tril` times the flattened weight."""
     nd = x.dim() - 2
     o = w.shape[0]
-    pos = _CONV_WEIGHT[nd](x.float(), w.shape, y.float(),
+    pos = _CONV_WEIGHT[nd](x.to(dtype), w.shape, y.to(dtype),
                            stride=_tuple(stride, nd),
                            padding=_tuple(padding, nd))
-    m = _gram(y) * sanger_tril(o, w.device, chunk)
-    dec = (m @ w.float().reshape(o, -1)).reshape(w.shape)
+    m = _gram(y, dtype) * sanger_tril(o, w.device, chunk, dtype)
+    dec = (m @ w.to(dtype).reshape(o, -1)).reshape(w.shape)
     return pos - dec
 
 
-def swta_t_delta(w, x, y, k_temp, stride):
-    """Transpose-conv swta (``hebbax`` ``swta_t_delta``), in float32.
+def swta_t_delta(w, x, y, k_temp, stride, dtype=torch.float32):
+    """Transpose-conv swta (``hebbax`` ``swta_t_delta``), in ``dtype``.
 
     w (I, O, *k); x (N, I, *q) the layer input; y (N, O, *p) its output
     with p = (q - 1) * s + k (no padding).  Patch q of the output's
@@ -156,18 +180,18 @@ def swta_t_delta(w, x, y, k_temp, stride):
     nd = x.dim() - 2
     stride = _tuple(stride, nd)
     conv_weight = _CONV_WEIGHT[nd]
-    r = torch.softmax(k_temp * y.float(), dim=1)
-    pos = conv_weight(r, w.shape, x.float(), stride=stride)
+    r = torch.softmax(k_temp * y.to(dtype), dim=1)
+    pos = conv_weight(r, w.shape, x.to(dtype), stride=stride)
     ones = torch.ones((x.shape[0], 1) + tuple(x.shape[2:]),
-                      dtype=torch.float32, device=x.device)
+                      dtype=dtype, device=x.device)
     r_sum = conv_weight(r, (1,) + tuple(w.shape[1:]), ones,
                         stride=stride)                        # (1, O, *k)
-    wf = w.float()
+    wf = w.to(dtype)
     kdims = tuple(range(2, nd + 2))
     return pos - torch.sum(r_sum * wf, dim=kdims, keepdim=True)
 
 
-def strided_grams(y, q, k, stride):
+def strided_grams(y, q, k, stride, dtype=torch.float32):
     """Per-kernel-offset output Grams (hebbax's ``_strided_patches_m``):
     M[kappa][o, o'] = sum_{n,j} y[n, o, s j + kappa] y[n, o', s j + kappa]
     over the q input positions j, from strided slices of y (no unfold).
@@ -178,12 +202,12 @@ def strided_grams(y, q, k, stride):
         idx = (slice(None), slice(None)) + tuple(
             slice(kappa[d], kappa[d] + stride[d] * q[d], stride[d])
             for d in range(nd))
-        mats.append(_gram(y[idx]))
+        mats.append(_gram(y[idx], dtype))
     return torch.stack(mats)
 
 
-def hpca_t_delta(w, x, y, stride, chunk=None):
-    """Transpose-conv Sanger (``hebbax`` ``hpca_t_delta``), in float32:
+def hpca_t_delta(w, x, y, stride, chunk=None, dtype=torch.float32):
+    """Transpose-conv Sanger (``hebbax`` ``hpca_t_delta``), in ``dtype``:
     ``pos`` as in :func:`swta_t_delta` with y for r, and
 
       dec[i, o] = sum_kappa sum_{o'} (M_kappa ⊙ tril)[o, o'] w[i, o', kappa]
@@ -194,10 +218,10 @@ def hpca_t_delta(w, x, y, stride, chunk=None):
     stride = _tuple(stride, nd)
     k = tuple(w.shape[2:])
     i_ch, o = w.shape[:2]
-    pos = _CONV_WEIGHT[nd](y.float(), w.shape, x.float(), stride=stride)
-    m = strided_grams(y, tuple(x.shape[2:]), k, stride) * sanger_tril(
-        o, w.device, chunk)
-    wk = w.float().reshape(i_ch, o, -1).permute(2, 0, 1)        # (K, I, O)
+    pos = _CONV_WEIGHT[nd](y.to(dtype), w.shape, x.to(dtype), stride=stride)
+    m = strided_grams(y, tuple(x.shape[2:]), k, stride, dtype) * sanger_tril(
+        o, w.device, chunk, dtype)
+    wk = w.to(dtype).reshape(i_ch, o, -1).permute(2, 0, 1)      # (K, I, O)
     dec = torch.einsum("kab,kib->ia", m, wk)
     return pos - dec.reshape((i_ch, o) + (1,) * nd)
 
@@ -217,7 +241,8 @@ def neighborhood_sum(y):
 
 
 def contrastive_delta(w, x, perm, stride, padding, transpose, w_nrm,
-                      contrast=1.0, uniformity=False, bias=None):
+                      contrast=1.0, uniformity=False, bias=None,
+                      dtype=torch.float32):
     """+grad over w of the local objective (``hebbax``
     ``contrastive_delta``)
 
@@ -232,7 +257,7 @@ def contrastive_delta(w, x, perm, stride, padding, transpose, w_nrm,
     the layer's conv (stride, padding) or transpose conv (stride).
 
     Taken with ``torch.autograd.grad`` under ``torch.enable_grad()`` on a
-    detached float32 copy of w, so it runs inside ``torch.no_grad()`` and
+    detached ``dtype`` copy of w, so it runs inside ``torch.no_grad()`` and
     leaves no trace in any outer graph."""
     if perm is None:
         raise ValueError("contrastive needs the batch permutation its site "
@@ -247,13 +272,13 @@ def contrastive_delta(w, x, perm, stride, padding, transpose, w_nrm,
 
         def fwd(inp, wt):
             return _CONV[nd](inp, wt, stride=stride, padding=padding)
-    x = x.detach().float()
+    x = x.detach().to(dtype)
     with torch.enable_grad():
-        w_ = w.detach().float().clone().requires_grad_(True)
+        w_ = w.detach().to(dtype).clone().requires_grad_(True)
         w_eff = normalize(w_, weight_norm_dims(nd)) if w_nrm else w_
         y = fwd(x, w_eff)
         if bias is not None:
-            y = y + bias.detach().float().view((-1,) + (1,) * nd)
+            y = y + bias.detach().to(dtype).view((-1,) + (1,) * nd)
         y = normalize(y, (1,))
         nbr = neighborhood_sum(y)
         umap = None
@@ -263,7 +288,7 @@ def contrastive_delta(w, x, perm, stride, padding, transpose, w_nrm,
                 umap = torch.sum(neighborhood_sum(xn) * xn, dim=1,
                                  keepdim=True)
                 ones_k = torch.ones((1, 1) + tuple(w.shape[2:]),
-                                    dtype=torch.float32, device=x.device)
+                                    dtype=dtype, device=x.device)
                 umap = fwd(umap, ones_k)[:, 0]
         if active():
             obj = _contrastive_objective_dp(y, nbr, perm, contrast, umap)
@@ -296,7 +321,7 @@ def _contrastive_objective_dp(y, nbr, perm, contrast, umap):
 
 
 def compute_delta(spec, w, x, y, padding, transpose=False, stride=1,
-                  bias=None, perm=None):
+                  bias=None, perm=None, dtype=torch.float32):
     """Route a conv's delta to the configured rule (``hebbax``
     ``compute_delta``):
 
@@ -310,6 +335,8 @@ def compute_delta(spec, w, x, y, padding, transpose=False, stride=1,
     * hpca on a forward conv -> :func:`hpca_conv_delta`, no chunk;
     * swta_t / hpca_t on a transpose conv -> :func:`swta_t_delta` /
       :func:`hpca_t_delta`, hpca_t with the 32-channel chunk in 3D only.
+
+    ``dtype`` is the composed rules' arithmetic (:func:`delta_compute_dtype`).
     """
     if not spec.patchwise:
         raise NotImplementedError(
@@ -323,18 +350,19 @@ def compute_delta(spec, w, x, y, padding, transpose=False, stride=1,
         return contrastive_delta(w, x, perm, stride,
                                  0 if transpose else padding, transpose,
                                  spec.w_nrm, spec.contrast, spec.uniformity,
-                                 bias)
+                                 bias, dtype)
     if transpose and mode == "swta":
-        return swta_delta(w, y, x, spec.k, (0,) * nd, stride)
+        return swta_delta(w, y, x, spec.k, (0,) * nd, stride, dtype)
     if transpose and mode == "hpca":
-        return hpca_conv_delta(w, y, x, 0, stride)
+        return hpca_conv_delta(w, y, x, 0, stride, dtype=dtype)
     if mode == "swta":
-        return swta_delta(w, x, y, spec.k, padding, stride)
+        return swta_delta(w, x, y, spec.k, padding, stride, dtype)
     if mode == "hpca":
-        return hpca_conv_delta(w, x, y, padding, stride)
+        return hpca_conv_delta(w, x, y, padding, stride, dtype=dtype)
     if mode == "swta_t":
-        return swta_t_delta(w, x, y, spec.k, stride)
+        return swta_t_delta(w, x, y, spec.k, stride, dtype)
     if mode == "hpca_t":
         return hpca_t_delta(w, x, y, stride,
-                            chunk=HPCA_T_CHUNK_3D if nd == 3 else None)
+                            chunk=HPCA_T_CHUNK_3D if nd == 3 else None,
+                            dtype=dtype)
     raise NotImplementedError(f"Hebbian mode {mode!r} unavailable")

@@ -9,22 +9,78 @@ draw from an explicit ``torch.Generator``, and ``feature_noise`` /
 ``feature_dropout_elementwise`` / ``feature_dropout_attention`` apply a
 given draw, so a caller can pass draws in as tensors (the tests pass
 hebbax's ``jax.random`` draws).
+
+:func:`remat_policy` and :func:`checkpointed` recompute a CCT shared
+decoder in the backward (hebbax's ``nn.remat``); the batch norms, Hebbian
+convs and dropouts of a recomputed forward replay their first run
+(:mod:`hebbax_torch.utils.remat`).
 """
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.dropout import Dropout
 from ..parallel import batch_var_mean, draw_rows
+from ..utils import remat
 
 CCT_PERTURB_KINDS = ("noise", "dropout", "feature_dropout")
 CCT_DROPOUT_P = 0.3             # element dropout rate
 CCT_NOISE_RANGE = 0.3           # multiplicative noise ~ U(-r, r)
 CCT_FRAC_RANGE = (0.7, 0.9)     # attention threshold fraction ~ U(lo, hi)
+
+
+_CONV_OPS = (torch.ops.aten.convolution.default,)
+
+
+def _save_convs(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _CONV_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy(name):
+    """The recompute policy of a rematted CCT shared decoder
+    (``hebbax/models/common.py`` ``remat_policy``), as the ``context_fn``
+    of ``torch.utils.checkpoint.checkpoint``.
+
+    ``None``: full recompute — only the region's inputs are stored and the
+    whole decoder runs again in the backward (returns None: checkpoint's
+    default).  ``"convs"``: every convolution's output (``aten.convolution``,
+    transpose convs included) is saved, so the backward recomputes only
+    the elementwise tail (batch norm, activation, add, concat, resize).
+    The gradients are the same either way."""
+    if name is None:
+        return None
+    if name == "convs":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_convs)
+    raise ValueError(f"unknown remat policy {name!r}")
+
+
+def checkpointed(fn, policy=None):
+    """``fn`` recomputed in the backward under :func:`remat_policy`
+    ``policy`` (non-reentrant ``torch.utils.checkpoint``).  Each call gets
+    a :class:`~hebbax_torch.utils.remat.Tape`, so its recomputation
+    replays the first run's batch statistics and dropout masks, moves no
+    running statistics, records no Hebbian delta and makes no
+    collective call."""
+    context_fn = remat_policy(policy)
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+
+    def run(*args):
+        tape = remat.Tape()
+
+        def body(*a):
+            with tape.run():
+                return fn(*a)
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+    return run
 
 
 # std of a unit normal truncated to [-2, 2]: flax divides by it so the
@@ -178,19 +234,25 @@ def perturb_features(feats, kind, generator=None, draws=None):
 
 def cct_aux_outputs(clean_levels, perturb_one, decode, batched=False):
     """The CCT protocol: the clean decode, then one decode per
-    perturbation kind, in ``CCT_PERTURB_KINDS`` order.
+    perturbation kind, in ``CCT_PERTURB_KINDS`` order; the perturbations
+    are drawn first, in that order.
 
     perturb_one(kind) -> the perturbed list of levels; decode(levels) ->
-    logits.  Four serial passes, so every batch norm of the shared decoder
-    takes four momentum updates per training forward.  ``batched`` (one
-    4N-batched decode, which changes training BN numerics) is a TPU
-    variant that is not ported."""
-    if batched:
-        raise NotImplementedError(
-            "the 4N-batched CCT decode (unet_cct_s2d_batched) is not "
-            "ported yet")
+    logits.  ``batched=False``: four serial passes, so every batch norm of
+    the shared decoder takes four momentum updates per training forward
+    and every Hebbian site four deltas.  ``batched=True`` (hebbax's
+    ``*_batched`` networks): each level's clean and 3 perturbed copies
+    concatenated on the batch axis, ONE decode of 4N, sliced back into 4:
+    a training forward's batch statistics are those of the 4N batch (one
+    momentum update, one delta per site); exact in eval, which has no
+    perturbed pass."""
     pert = [perturb_one(kind) for kind in CCT_PERTURB_KINDS]
-    return (decode(clean_levels), *[decode(p) for p in pert])
+    if not batched:
+        return (decode(clean_levels), *[decode(p) for p in pert])
+    n = clean_levels[0].shape[0]
+    out = decode([torch.cat([c] + [p[lv] for p in pert])
+                  for lv, c in enumerate(clean_levels)])
+    return tuple(out[i * n:(i + 1) * n] for i in range(4))
 
 
 class Dropout3d(Dropout):
@@ -202,10 +264,10 @@ class Dropout3d(Dropout):
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        keep = draw_rows(lambda shape: torch.empty(
+        keep = remat.stash(lambda: draw_rows(lambda shape: torch.empty(
             shape, dtype=x.dtype, device=x.device).bernoulli_(
             1.0 - self.p, generator=self.generator),
-            x.shape[:2] + (1,) * (x.dim() - 2))
+            x.shape[:2] + (1,) * (x.dim() - 2)))
         return x * keep * (1.0 / (1.0 - self.p))
 
 
@@ -230,6 +292,8 @@ class BatchNorm2d(nn.Module):
     Under data parallelism the batch statistics are the global batch's
     (:func:`hebbax_torch.parallel.batch_var_mean`, differentiable), as
     flax's under SPMD, so the running statistics move alike on every rank.
+    In a recomputed forward (:func:`checkpointed`) the batch statistics
+    are the first run's, to the bit, and the running ones do not move.
     """
 
     eps = 1e-5
@@ -262,11 +326,15 @@ class BatchNorm2d(nn.Module):
             y = F.batch_norm(x, self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
             return y.to(out_dtype)
-        # over the global batch under data parallelism
+        # over the global batch under data parallelism; a recomputed
+        # forward takes its first run's statistics and leaves the running
+        # ones alone
         var, mean = batch_var_mean(x, (0,) + tuple(range(2, x.dim())))
-        with torch.no_grad():
-            self.running_mean.lerp_(mean.detach(), self.momentum)
-            self.running_var.lerp_(var.detach(), self.momentum)
+        var, mean = remat.pin(var), remat.pin(mean)
+        if not remat.replaying():
+            with torch.no_grad(), remat.untracked():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
         inv = torch.rsqrt(var + self.eps)
         view = (1, -1) + (1,) * (x.dim() - 2)
         y = (x - mean.view(view)) * (inv * self.weight).view(view)

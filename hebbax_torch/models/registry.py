@@ -1,23 +1,30 @@
-"""Network registry (``hebbax/models/registry.py``), the networks ported
-so far: in 2D ``unet``, ``unet_urpc``, ``unet_cct`` and the unsupervised
-baselines ``unet_vae``, ``unet_superpix`` and ``unet_ddpm``; in 3D
-``unet3d``, ``unet3d_dtc``, ``unet3d_cct``, ``unet3d_urpc``,
+"""Network registry (``hebbax/models/registry.py``): every name hebbax
+registers.  In 2D ``unet``, ``unet_urpc``, ``unet_cct`` and the
+unsupervised baselines ``unet_vae``, ``unet_superpix`` and ``unet_ddpm``;
+in 3D ``unet3d``, ``unet3d_dtc``, ``unet3d_cct``, ``unet3d_urpc``,
 ``unet3d_min`` / ``unet3d_cct_min`` (32 initial features), the
 unsupervised baselines ``unet3d_vae`` and ``unet3d_superpix``, and the
 VNet family ``vnet``, ``vnet_cct``, ``vnet_dtc``; the spiking VGG9
-``snn_vgg`` and its non-spiking twin ``ann_vgg``.  (The
-RAD-DINO encoder and decoder are built by their trainer, as in hebbax.)
+``snn_vgg`` and its non-spiking twin ``ann_vgg``.  (The RAD-DINO encoder
+and decoder are built by their trainer, as in hebbax.)
 
 The folded ``*_s2d`` names are registered on the same classes: their
 parameter trees are identical and the space-to-depth fold is a TPU
 layout, so the CLIs' defaults (``unet_s2d``, ``unet3d_s2d``,
 ``unet3d_urpc_s2d``, ``vnet_s2d``, ...) run the unfolded network here;
-the baselines have no folded name in hebbax either.
-``unet3d_cct_s2d_rc`` and ``vnet_cct_s2d_rc`` are hebbax's remat policy
-for the shared decoder, with unchanged grads: they run the plain
-``UNet3DCCT`` / ``VNetCCT`` (no recomputation) here.  The ``*_batched``
-names (one 4N-batched decode, other training BN numerics) are not
-registered.
+the baselines have no folded name in hebbax either.  Two options of the
+CCT networks carry over:
+
+* ``*_rc`` (``unet3d_cct_s2d_rc``, ``vnet_cct_s2d_rc``): the shared
+  decoder recomputed in the backward with the conv outputs saved
+  (``remat_policy="convs"``), grads unchanged.  hebbax remats every folded
+  CCT decoder, fully where the name has no ``_rc``, to fit a 16 GB TPU;
+  here the names without ``_rc`` recompute nothing;
+* ``*_batched`` (``unet_cct_s2d_batched``, ``unet3d_cct_s2d_batched``,
+  ``vnet_cct_s2d_batched``): the clean and 3 perturbed decoder passes as
+  one of 4N (training batch statistics over the 4N batch, exact in
+  eval); ``unet3d_cct_s2d_batched_rc`` and ``vnet_cct_s2d_batched_rc``
+  take both options.
 """
 
 from typing import Optional
@@ -38,6 +45,15 @@ _CCT = dict(nd=2, outputs="deep4", rngs=("perturb",))
 _DEEP4_3D = dict(nd=3, outputs="deep4")
 _CCT_3D = dict(nd=3, outputs="deep4", rngs=("perturb",))
 _DTC_3D = dict(nd=3, outputs="dtc")
+
+
+def _cct(cls, **options):
+    """``cls`` built with the CCT options of a ``*_batched`` / ``*_rc``
+    name."""
+    return lambda **kw: cls(**options, **kw)
+
+
+_RC = dict(remat=True, remat_policy="convs")
 
 
 def _vgg(cls):
@@ -64,6 +80,7 @@ _REGISTRY = {
     "unet_urpc_s2d": (UNetURPC2D, _DEEP4),
     "unet_cct": (UNetCCT2D, _CCT),
     "unet_cct_s2d": (UNetCCT2D, _CCT),
+    "unet_cct_s2d_batched": (_cct(UNetCCT2D, batched_aux=True), _CCT),
     "unet_vae": (UNetVAE2D, dict(nd=2, outputs="vae", rngs=("latent",))),
     "unet_superpix": (UNetSuperpix2D, dict(nd=2, outputs="superpix")),
     "unet_ddpm": (DDPMUNet, dict(nd=2, outputs="ddpm")),
@@ -78,7 +95,10 @@ _REGISTRY = {
     "unet3d_dtc_s2d": (UNet3DDTC, _DTC_3D),
     "unet3d_cct": (UNet3DCCT, _CCT_3D),
     "unet3d_cct_s2d": (UNet3DCCT, _CCT_3D),
-    "unet3d_cct_s2d_rc": (UNet3DCCT, _CCT_3D),
+    "unet3d_cct_s2d_rc": (_cct(UNet3DCCT, **_RC), _CCT_3D),
+    "unet3d_cct_s2d_batched": (_cct(UNet3DCCT, batched_aux=True), _CCT_3D),
+    "unet3d_cct_s2d_batched_rc": (
+        _cct(UNet3DCCT, batched_aux=True, **_RC), _CCT_3D),
     "unet3d_cct_min": (lambda **kw: UNet3DCCT(init_features=32, **kw),
                        _CCT_3D),
     "unet3d_urpc": (UNet3DURPC, _DEEP4_3D),
@@ -89,7 +109,10 @@ _REGISTRY = {
     "vnet_s2d": (VNet, dict(nd=3, outputs="single")),
     "vnet_cct": (VNetCCT, _CCT_3D),
     "vnet_cct_s2d": (VNetCCT, _CCT_3D),
-    "vnet_cct_s2d_rc": (VNetCCT, _CCT_3D),
+    "vnet_cct_s2d_rc": (_cct(VNetCCT, **_RC), _CCT_3D),
+    "vnet_cct_s2d_batched": (_cct(VNetCCT, batched_aux=True), _CCT_3D),
+    "vnet_cct_s2d_batched_rc": (
+        _cct(VNetCCT, batched_aux=True, **_RC), _CCT_3D),
     "vnet_dtc": (VNetDTC, _DTC_3D),
     "vnet_dtc_s2d": (VNetDTC, _DTC_3D),
 }

@@ -250,13 +250,16 @@ class UNetCCT2D(nn.Module):
     ``perturb_generator`` through :meth:`draw_perturbations` (an instance
     may replace that method to inject draws).  An eval forward skips the
     perturbed passes and returns the main output four times: only the
-    primary output is read in eval.
+    primary output is read in eval.  ``batched_aux`` (``unet_cct_s2d_batched``)
+    runs the four decoder passes as one of 4N
+    (:func:`~hebbax_torch.models.common.cct_aux_outputs`).
     """
 
     def __init__(self, in_channels: int, n_cls: int,
                  hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
                  device=None, generator=None, dropout_generator=None,
-                 perturb_generator=None, dtype=None):
+                 perturb_generator=None, dtype=None,
+                 batched_aux: bool = False):
         super().__init__()
         kw = dict(init_type=init_type, device=device, generator=generator)
         f = FEATURES
@@ -268,6 +271,7 @@ class UNetCCT2D(nn.Module):
         self.up4 = UpBlock2D(f[1], f[0], f[0], f[0], **kw)
         self.out_conv = HConv(f[0], n_cls, kernel_size=3, padding=1, **kw)
         self.perturb_generator = perturb_generator
+        self.batched_aux = batched_aux
         self.hebb = hebb
         bind_paths(self, hebb)
         set_compute_dtype(self, dtype)
@@ -293,7 +297,7 @@ class UNetCCT2D(nn.Module):
         return cct_aux_outputs(
             feats, lambda kind: perturb_features(feats, kind,
                                                  draws=draws[kind]),
-            self.decode)
+            self.decode, self.batched_aux)
 
 
 class UNetVAE2D(nn.Module):

@@ -35,7 +35,8 @@ from ..hebb.layers import HConv, HConvTranspose, bind_paths, set_compute_dtype
 from ..hebb.spec import HebbSpec
 from ..parallel import draw_rows
 from .common import (CCT_PERTURB_KINDS, BatchNorm3d, cct_aux_outputs,
-                     draw_perturbation, max_pool, perturb_features)
+                     checkpointed, draw_perturbation, max_pool,
+                     perturb_features)
 
 
 class Block3D(nn.Module):
@@ -164,12 +165,22 @@ class UNet3DCCT(nn.Module):
     and returns the main output four times: only the primary output is
     read in eval.  Four serial decoder passes per training forward, so
     every batch norm of the shared decoder takes four momentum updates.
+
+    ``batched_aux`` (hebbax's ``*_batched`` names): one 4N-batched decoder
+    pass instead (:func:`~hebbax_torch.models.common.cct_aux_outputs`).
+    ``remat`` (the ``*_rc`` names): ``main_decoder`` is recomputed in the
+    backward under :func:`~hebbax_torch.models.common.remat_policy`
+    ``remat_policy``, with the grads, outputs and statistics unchanged.
+    hebbax remats every folded CCT network (fully, unless ``"convs"``) to
+    fit a 16 GB TPU; the port's plain names keep everything.
     """
 
     def __init__(self, in_channels: int, n_cls: int,
                  init_features: int = 64, hebb: Optional[HebbSpec] = None,
                  init_type: str = "kaiming", device=None, generator=None,
-                 dropout_generator=None, perturb_generator=None, dtype=None):
+                 dropout_generator=None, perturb_generator=None, dtype=None,
+                 batched_aux: bool = False, remat: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         del dropout_generator           # no dropout in this network
         kw = dict(init_type=init_type, device=device, generator=generator)
@@ -177,13 +188,18 @@ class UNet3DCCT(nn.Module):
         self.main_decoder = Decoder3D(init_features, **kw)
         self.conv = HConv(init_features, n_cls, kernel_size=(1, 1, 1), **kw)
         self.perturb_generator = perturb_generator
+        self.batched_aux = batched_aux
+        self.remat = remat
+        self.remat_policy = remat_policy
         self.hebb = hebb
         bind_paths(self, hebb)
         set_compute_dtype(self, dtype)
 
     def decode(self, levels):
         """levels: the four skip features, then the bottleneck."""
-        return self.conv(self.main_decoder(levels[-1], levels[:4]))
+        decoder = (checkpointed(self.main_decoder, self.remat_policy)
+                   if self.remat else self.main_decoder)
+        return self.conv(decoder(levels[-1], levels[:4]))
 
     def draw_perturbations(self, levels):
         """{kind: [draw per level]} for one training forward."""
@@ -200,7 +216,7 @@ class UNet3DCCT(nn.Module):
         return cct_aux_outputs(
             levels, lambda kind: perturb_features(levels, kind,
                                                   draws=draws[kind]),
-            self.decode)
+            self.decode, self.batched_aux)
 
 
 class UNet3DVAE(nn.Module):

@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from ..hebb.layers import HConv, HConvTranspose, bind_paths, set_compute_dtype
 from ..hebb.spec import HebbSpec
 from .common import (CCT_PERTURB_KINDS, BatchNorm3d, Dropout3d,
-                     cct_aux_outputs, draw_perturbation, perturb_features)
+                     cct_aux_outputs, checkpointed, draw_perturbation,
+                     perturb_features)
 
 
 class LUConvStack(nn.Module):
@@ -208,18 +209,30 @@ class VNetCCT(nn.Module):
     draws); an eval forward returns the main output four times.  Four
     serial decoder passes per training forward: each batch norm of the
     decoder takes four momentum updates, and each Hebbian site of the
-    decoder sums four deltas."""
+    decoder sums four deltas.  ``batched_aux`` and ``remat`` /
+    ``remat_policy`` are UNet3DCCT's (the ``*_batched`` and ``*_rc``
+    names); a recomputed decoder replays its skip dropout masks."""
 
     def __init__(self, in_channels: int, n_cls: int,
                  hebb: Optional[HebbSpec] = None, init_type: str = "kaiming",
                  device=None, generator=None, dropout_generator=None,
-                 perturb_generator=None, dtype=None):
+                 perturb_generator=None, dtype=None,
+                 batched_aux: bool = False, remat: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         kw = dict(init_type=init_type, device=device, generator=generator)
         _add_encoder(self, in_channels, **kw)
         self.main_decoder = VNetDecoder(n_cls, dropout_generator, **kw)
         self.perturb_generator = perturb_generator
+        self.batched_aux = batched_aux
+        self.remat = remat
+        self.remat_policy = remat_policy
         _finish(self, hebb, dtype)
+
+    def decode(self, levels):
+        decoder = (checkpointed(self.main_decoder, self.remat_policy)
+                   if self.remat else self.main_decoder)
+        return decoder(levels)
 
     def draw_perturbations(self, levels):
         """{kind: [draw per level]} for one training forward."""
@@ -235,7 +248,7 @@ class VNetCCT(nn.Module):
         return cct_aux_outputs(
             levels, lambda kind: perturb_features(levels, kind,
                                                   draws=draws[kind]),
-            self.main_decoder)
+            self.decode, self.batched_aux)
 
 
 class VNetDTC(nn.Module):

@@ -1,9 +1,13 @@
 """Streaming evaluation metrics (``hebbax/ops/metrics.py``).
 
-Per-batch counters stay on the device; the threshold sweep is a
-broadcasted compare + reduce over the 45 thresholds
+Per-batch counters stay on the device and are read once at ``finalize``.
+A binary task (:class:`SweepAccumulator`) sweeps the 45 thresholds
 ``np.arange(0, 0.9, 0.02)`` (cast to the probabilities' dtype, as hebbax
-does), and the argmax-Jaccard selection happens once at ``finalize``.
+does) as a broadcasted compare + reduce and picks the argmax-Jaccard
+threshold; a task of N != 2 classes (:class:`ConfusionAccumulator`)
+bincounts ``target * N + argmax`` into an N x N confusion histogram and
+returns the mean Jaccard / Dice over the classes, with no threshold.
+Under data parallelism both sum their counters over the ranks first.
 """
 
 import numpy as np
@@ -68,8 +72,65 @@ class SweepAccumulator:
         return float(THRESHOLDS[idx]), float(jaccard[idx]), float(dice[idx])
 
 
+class ConfusionAccumulator:
+    """Multi-class confusion-matrix accumulation from logits (N, C, ...)
+    and integer targets: the argmax over the classes, then a bincount of
+    ``target * num_classes + pred`` into a float32 histogram, as hebbax's.
+    finalize() returns (None, nanmean Jaccard, nanmean Dice) in float64."""
+
+    def __init__(self, num_classes):
+        self.num_classes = num_classes
+        self.hist = None
+
+    def update(self, logits, target):
+        n = self.num_classes
+        pred = torch.argmax(logits.detach(), dim=1)
+        idx = target.to(pred.device, torch.int64) * n + pred
+        counts = torch.bincount(idx.reshape(-1), minlength=n * n).float()
+        self.hist = counts if self.hist is None else self.hist + counts
+        return self
+
+    def finalize(self):
+        """Under data parallelism the histogram is first summed over the
+        ranks, as :meth:`SweepAccumulator.finalize` sums its counters."""
+        n = self.num_classes
+        if active() and self.hist is not None:
+            (self.hist,) = sum_tensors([self.hist.clone()])
+        hist = (np.zeros((n, n)) if self.hist is None
+                else self.hist.double().cpu().numpy().reshape(n, n))
+        diag = np.diag(hist)
+        s0 = hist.sum(axis=0)
+        s1 = hist.sum(axis=1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            jaccard = diag / (s1 + s0 - diag)
+            dice = 2 * diag / (s1 + s0)
+        return None, float(np.nanmean(jaccard)), float(np.nanmean(dice))
+
+
+def eval_single_class(logits, target):
+    """One-shot binary evaluation of a whole (N, 2, ...) logits tensor."""
+    return SweepAccumulator().update(torch.as_tensor(logits),
+                                     torch.as_tensor(target)).finalize()
+
+
+def eval_multi_class(logits, target, num_classes=None):
+    """One-shot multi-class evaluation of a whole (N, C, ...) logits
+    tensor; ``num_classes`` defaults to C."""
+    logits = torch.as_tensor(logits)
+    if num_classes is None:
+        num_classes = logits.shape[1]
+    return ConfusionAccumulator(num_classes).update(
+        logits, torch.as_tensor(target)).finalize()
+
+
+def evaluate(num_classes, logits, target):
+    """(threshold or None, jaccard, dice) of channels-first logits."""
+    if num_classes == 2:
+        return eval_single_class(logits, target)
+    return eval_multi_class(logits, target, num_classes)
+
+
 def make_accumulator(num_classes):
     if num_classes == 2:
         return SweepAccumulator()
-    raise NotImplementedError(
-        "multi-class confusion metrics are not ported yet")
+    return ConfusionAccumulator(num_classes)

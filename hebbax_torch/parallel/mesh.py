@@ -52,6 +52,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import remat
+
 _STATE = {"world": 1, "rank": 0}
 
 DEFAULT_TIMEOUT_S = 600.0
@@ -171,12 +173,35 @@ class _AllReduceSum(torch.autograd.Function):
         return g
 
 
+class _ReplayedSum(torch.autograd.Function):
+    """The all-reduced value a region's first run kept, with
+    :class:`_AllReduceSum`'s backward: a recomputed forward makes no
+    collective call."""
+
+    @staticmethod
+    def forward(ctx, x, kept):
+        return kept.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduceSum.backward(ctx, g), None
+
+
 def gsum(x):
     """``x`` summed over the ranks (identity without data parallelism),
-    differentiable: call it on a rank's partial sum of a batch reduction."""
+    differentiable: call it on a rank's partial sum of a batch reduction.
+    In a recomputed checkpoint region (:mod:`hebbax_torch.utils.remat`) it
+    replays the sum its first run all-reduced."""
     if not active():
         return x
-    return _AllReduceSum.apply(x)
+    tape = remat.current()
+    with remat.untracked():
+        if tape is not None and tape.replaying:
+            return _ReplayedSum.apply(x, tape.next())
+        y = _AllReduceSum.apply(x)
+    if tape is not None:
+        tape.keep(y.detach())
+    return y
 
 
 def gmean(x):

@@ -1,1 +1,2 @@
-"""Seeding, run directories, logging sinks, PNG writer and snapshots."""
+"""Seeding, run directories, logging sinks, PNG writer, snapshots, the
+replay of a recomputed checkpoint region and step timing."""

@@ -41,10 +41,15 @@ def save_pred_png(pred, path, palette):
         f.write(encode_paletted_png(pred, palette))
 
 
-def save_preds(probs_fg, threshold, names, out_dir, palette):
-    """probs_fg: (N,H,W) foreground probabilities, thresholded here."""
+def save_preds(probs_fg_or_labels, threshold, names, out_dir, palette):
+    """probs_fg_or_labels: (N,H,W) foreground probabilities, thresholded
+    here, or, with ``threshold`` None, values cast to uint8 labels (the
+    multi-class snapshot's case, as hebbax's)."""
     os.makedirs(out_dir, exist_ok=True)
-    arr = np.asarray(probs_fg)
+    arr = np.asarray(probs_fg_or_labels)
     for i, name in enumerate(names):
-        pred = (arr[i] > threshold).astype(np.uint8)
+        if threshold is not None:
+            pred = (arr[i] > threshold).astype(np.uint8)
+        else:
+            pred = arr[i].astype(np.uint8)
         save_pred_png(pred, os.path.join(out_dir, str(name)), palette)

@@ -141,9 +141,12 @@ def test_registry_names():
         m = get_network(name, 1, 2, device="meta")
         assert m.conv.weight.shape == (2, f, 1, 1, 1)
         assert m.encoder.bottleneck.conv2.weight.shape[0] == 16 * f
-    # the 4N-batched CCT decode is a TPU variant the port leaves out
-    with pytest.raises(KeyError, match="unet3d_cct_s2d_batched"):
-        get_network("unet3d_cct_s2d_batched", 1, 2)
+    # the 4N-batched CCT decode: hebbax's deep4 metadata, one decode
+    for name in ("unet3d_cct_s2d_batched", "unet3d_cct_s2d_batched_rc"):
+        assert network_meta(name) == {"nd": 3, "outputs": "deep4",
+                                      "rngs": ("perturb",)}
+        m = get_network(name, 1, 2, device="meta")
+        assert m.batched_aux and m.conv.weight.shape == (2, 64, 1, 1, 1)
 
 
 # -- snapshots ---------------------------------------------------------------

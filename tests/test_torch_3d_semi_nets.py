@@ -172,9 +172,17 @@ def test_registry_entries(name, cls):
 
 
 def test_batched_names_are_not_registered():
+    """The two 4N-batched 3D CCT names are registered now (the name is
+    kept): hebbax's deep4 metadata, ``UNet3DCCT`` with the batched decode,
+    the ``_rc`` one recomputing its decoder with the conv outputs
+    saved."""
     for name in ("unet3d_cct_s2d_batched", "unet3d_cct_s2d_batched_rc"):
-        with pytest.raises(KeyError):
-            network_meta(name)
+        assert network_meta(name) == j_meta(name)
+        assert network_meta(name)["outputs"] == "deep4"
+        m = get_network(name, 1, 2, device="meta")
+        assert type(m) is UNet3DCCT and m.batched_aux
+        assert m.remat == name.endswith("_rc")
+        assert m.remat_policy == ("convs" if m.remat else None)
 
 
 def test_primary_logits_of_dtc_is_the_segmentation():

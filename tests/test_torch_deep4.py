@@ -168,8 +168,14 @@ def test_registry_entries(name, base, cls):
 
 
 def test_batched_cct_is_not_registered():
-    with pytest.raises(KeyError):
-        network_meta("unet_cct_s2d_batched")
+    """``unet_cct_s2d_batched`` is registered now (the name is kept):
+    hebbax's deep4 metadata, ``UNetCCT2D`` with the batched decode."""
+    from hebbax.models.registry import network_meta as j_meta
+    name = "unet_cct_s2d_batched"
+    assert network_meta(name) == j_meta(name)
+    assert network_meta(name)["outputs"] == "deep4"
+    m = get_network(name, 3, 2, generator=torch.Generator().manual_seed(0))
+    assert type(m) is UNetCCT2D and m.batched_aux
 
 
 @pytest.mark.parametrize("name", ["unet_urpc", "unet_cct"])

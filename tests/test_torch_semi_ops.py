@@ -258,19 +258,30 @@ def test_perturbation_matches_on_hebbax_draws(kind, seed):
 
 
 def test_cct_aux_outputs_order_and_batched_raises():
-    feats = [torch.ones(2, 1, 2, 2)]
-    seen = []
+    """The serial and the batched decode: perturbations drawn first, in
+    CCT_PERTURB_KINDS order; the batched one decodes each level's clean
+    and 3 perturbed copies as one batch of 4N (once) and slices it back
+    into the serial order.  (The batched decode no longer raises: the
+    name is kept.)"""
+    feats = [torch.arange(2.0).view(2, 1, 1, 1),
+             10 * torch.arange(2.0).view(2, 1, 1, 1)]
+    for batched in (False, True):
+        seen, decoded = [], []
 
-    def perturb_one(kind):
-        seen.append(kind)
-        return [f * (len(seen) + 1) for f in feats]
+        def perturb_one(kind):
+            seen.append(kind)
+            return [f + 100 * len(seen) for f in feats]
 
-    out = common.cct_aux_outputs(feats, perturb_one, lambda lv: lv[0])
-    assert seen == list(common.CCT_PERTURB_KINDS)
-    assert [float(o[0, 0, 0, 0]) for o in out] == [1.0, 2.0, 3.0, 4.0]
-    with pytest.raises(NotImplementedError):
-        common.cct_aux_outputs(feats, perturb_one, lambda lv: lv[0],
-                               batched=True)
+        def decode(lv):
+            decoded.append(lv[0].shape[0])
+            return lv[0] + lv[1]
+
+        out = common.cct_aux_outputs(feats, perturb_one, decode,
+                                     batched=batched)
+        assert seen == list(common.CCT_PERTURB_KINDS)
+        assert decoded == ([8] if batched else [2, 2, 2, 2])
+        assert [o[:, 0, 0, 0].tolist() for o in out] == [
+            [0.0, 11.0], [200.0, 211.0], [400.0, 411.0], [600.0, 611.0]]
 
 
 def test_port_draws_distribution():

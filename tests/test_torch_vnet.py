@@ -104,9 +104,17 @@ def test_registry_entries(name, cls):
 
 
 def test_batched_names_are_not_registered():
+    """The two 4N-batched VNet CCT names are registered now (the name is
+    kept): hebbax's deep4 metadata, ``VNetCCT`` with the batched decode,
+    the ``_rc`` one recomputing its decoder with the conv outputs
+    saved."""
     for name in ("vnet_cct_s2d_batched", "vnet_cct_s2d_batched_rc"):
-        with pytest.raises(KeyError):
-            network_meta(name)
+        assert network_meta(name) == j_meta(name)
+        assert network_meta(name)["outputs"] == "deep4"
+        m = get_network(name, 1, 2, device="meta")
+        assert type(m) is VNetCCT and m.batched_aux
+        assert m.remat == name.endswith("_rc")
+        assert m.remat_policy == ("convs" if m.remat else None)
 
 
 @pytest.mark.parametrize("name", list(NAMES))
