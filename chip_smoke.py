@@ -212,15 +212,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
    decoder sites at batch 4N), one ``train_semi_2d cct`` step, an eval
    forward equal to ``unet_cct``'s (1e-5 of max|logit|), K1 within TOL
    of its plain version at the 4N sites; (ai) one CCT step of
-   ``unet3d_cct_s2d_rc`` and ``vnet_cct_s2d_rc`` against ``unet3d_cct``
-   and ``vnet_cct`` from the same state and draws at batch 1, 96x96x80:
+   ``unet3d_cct_s2d_rc`` and ``vnet_cct_s2d_rc`` against the folded
+   ``unet3d_cct_s2d`` and ``vnet_cct_s2d`` (hebbax's ``_rc`` is its name
+   without ``_rc`` but for the recompute) from the same state and draws
+   at batch 1, 96x96x80:
    grads within 1e-6 of max|grad|, BN running statistics equal to the
    bit, the peak memory and the steady step times (``measure_step``) of
    each; (aj) the composed 3D delta at (j)'s 22 sites in float32 and in
    bfloat16 (``HEBBAX_DELTA_DTYPE``'s arithmetic), both timed, bf16's
    error against float32; one ``tail_path`` line carries them;
-14. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
-   urpc_pretrain, cct_pretrain and the paths of 6 to 13), the card's
+14. the space-to-depth folded networks (the ``_s2d`` names compute
+   folded, so every run above that names or defaults to one runs a
+   folded class: (b), (c), (i), (p), (t), (ah), (ai)): (ak) each 2D
+   ``_s2d`` name and UNet2DS2D(head_depth=2) against its unfolded twin
+   on the same weights and draws at batch 32, 128x128: eval outputs, a
+   Hebbian (swta, K=50) training forward (K1 22 / 22 / 58 / 22 / 22
+   launches; K1 within TOL of its plain version at
+   the sites it saw), its deltas and BN running statistics, one
+   fine-tune step's gradients; (al) each 3D ``_s2d`` name likewise at
+   batch 1, 96x96x80 (no K1 launch) with both peaks; (am) steady step
+   (``measure_step``), device busy share and peak memory of
+   ``train_sup_2d`` on ``unet_s2d`` / ``unet``, EM on ``unet3d_s2d`` /
+   ``unet3d``, URPC on ``unet3d_urpc_s2d`` / ``unet3d_urpc`` and
+   ``train_sup_3d`` on ``vnet_s2d`` / ``vnet``, and the cuDNN times of
+   one folded conv against its unfolded conv at ``unet3d``'s encoder1
+   and ``unet``'s in_conv; (an) ``HEBBAX_S2D_FOLDED_DELTA``'s
+   folded-layout delta against K1 at the 8 Hebbian folded sites of a
+   ``unet_s2d`` Hebbian forward, timed, with their error; one
+   ``s2d_path`` line carries them;
+15. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
+   urpc_pretrain, cct_pretrain and the paths of 6 to 14), the card's
    name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
@@ -543,10 +564,16 @@ def step_runner(trainer, step):
     return run
 
 
+STEADY_MIN, STEADY_BUDGET_S = 3, 2.0
+
+
 def steady_step_ms(trainer, step, n=10):
-    """Host times (ms) of n more train steps on fixed batches, each ended
-    by a synchronize, after the run's own steps warmed up cuDNN and the
-    allocator.  Made after the path's launch count was read."""
+    """Host times (ms) of up to n more train steps on fixed batches, each
+    ended by a synchronize, after the run's own steps warmed up cuDNN and
+    the allocator; at least STEADY_MIN, and no more once they took
+    STEADY_BUDGET_S (a 2D step gets its 10, a 3D step of 0.2–1.6 s 3–10:
+    their times hold within 1%).  Made after the path's launch count was
+    read."""
     import torch
 
     run = step_runner(trainer, step)
@@ -557,6 +584,8 @@ def steady_step_ms(trainer, step, n=10):
         run()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        if len(times) >= STEADY_MIN and sum(times) > STEADY_BUDGET_S * 1e3:
+            break
     return times
 
 
@@ -572,13 +601,16 @@ def kernel_group(name):
     return "other"
 
 
-def profile_steps(trainer, step, steady_ms, n=3):
-    """torch.profiler over n train steps on fixed batches: device time per
-    step by kernel class, its share of the unprofiled step's median host
-    time ``steady_ms``, and the heaviest kernels.  Made after the path's
-    launch count was read."""
+def profile_steps(trainer, step, steady_ms, n=None):
+    """torch.profiler over n train steps on fixed batches (3, or 2 for a
+    step over half a second): device time per step by kernel class, its
+    share of the unprofiled step's median host time ``steady_ms``, and
+    the heaviest kernels.  Made after the path's launch count was
+    read."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    n = n or (3 if steady_ms < 500 else 2)
 
     run = step_runner(trainer, step)
     torch.cuda.synchronize()
@@ -3329,8 +3361,10 @@ def phase_dp_cards(items, data_root):
 # -- 13: multi-class metrics, the CCT options, the delta dtype ----------------
 
 MC_DATASET, MC_CLASSES = "GlaS3", 3
-RC_NAMES = (("unet3d_cct", "unet3d_cct_s2d_rc"),
-            ("vnet_cct", "vnet_cct_s2d_rc"))
+# each _rc name against the folded name without _rc: hebbax's _rc is
+# identical to it but for the recompute
+RC_NAMES = (("unet3d_cct_s2d", "unet3d_cct_s2d_rc"),
+            ("vnet_cct_s2d", "vnet_cct_s2d_rc"))
 RC_GRAD_TOL = 1e-6              # of max|grad|: the recompute is exact
 BATCHED_EVAL_TOL = 1e-5         # of max|logit|: one decode of 4N, eval
 
@@ -3569,18 +3603,24 @@ def phase_batched(card, items, images, device="0"):
     del trainer
     release()
 
-    # K1 against its plain version at the sites of a batched forward
-    sites = capture_sites(models[1], images)
+    # K1 against its plain version at the sites of a batched forward, on
+    # the operands K1 sees there (a folded site's unfolded x and y)
+    models[1].train()
+    with torch.no_grad(), _SiteRecorder() as recorder:
+        models[1](images)
+    pop_deltas(models[1])
+    sites = recorder.sites
     check(len(sites) == 22 and sum(x.shape[0] == 4 * n
-                                   for _, _, x, _, _ in sites) == 12,
+                                   for _, x, *_ in sites) == 12,
           f"(ah) {len(sites)} sites")
     worst = 0.0
-    for name, w, x, y, pad in sites:
-        plain = rules.swta_conv_delta(w, x, y, K_TEMP, pad)
-        got = kernels.SWTA_DELTA(w, x, y, K_TEMP, pad)
+    for i, (w, x, y, k, pad, _) in enumerate(sites):
+        pad = rules._tuple(pad, 2)
+        plain = rules.swta_conv_delta(w, x, y, k, pad)
+        got = kernels.SWTA_DELTA(w, x, y, k, pad)
         rel = float((got - plain).abs().max()) / float(plain.abs().max())
         check(np.isfinite(rel) and rel <= TOL,
-              f"(ah) {name}: K1 vs plain {rel} of max|delta|")
+              f"(ah) site {i}: K1 vs plain {rel} of max|delta|")
         worst = max(worst, rel)
     record.update(eval_err=err, eval_scale=scale, k1_vs_plain_rel=worst,
                   sites_4n=12)
@@ -3606,10 +3646,11 @@ def cct_3d_step(model, x, mask):
 
 def phase_rc(card):
     """(ai) One CCT step of ``unet3d_cct_s2d_rc`` / ``vnet_cct_s2d_rc``
-    against the plain ``unet3d_cct`` / ``vnet_cct`` from the same state
-    and draws at batch 1, 96x96x80: the grads within RC_GRAD_TOL of
-    max|grad|, the BN running statistics equal to the bit, the peak
-    memory of each, and the steady step times (``measure_step``)."""
+    against the folded ``unet3d_cct_s2d`` / ``vnet_cct_s2d`` (no
+    recompute) from the same state and draws at batch 1, 96x96x80: the
+    grads within RC_GRAD_TOL of max|grad|, the BN running statistics
+    equal to the bit, the peak memory of each, and the steady step times
+    (``measure_step``)."""
     import torch
     from hebbax_torch.models import get_network
     from hebbax_torch.utils.seeding import make_generator
@@ -3722,6 +3763,480 @@ def phase_tail(card, items, images, device="0"):
     launches = {**l_ag, **l_ah}
     return launches, {"launches": launches, "ag": r_ag, "ah": r_ah,
                       "ai": r_ai, "aj": r_aj}
+
+
+# -- phase 14: the space-to-depth folded networks ----------------------------
+
+# each ``_s2d`` name (and UNet2DS2D(head_depth=2)) -> the unfolded twin's
+# registry name and the class options the name adds
+S2D_2D = {"unet_s2d": ("unet", {}), "unet_urpc_s2d": ("unet_urpc", {}),
+          "unet_cct_s2d": ("unet_cct", {}),
+          "unet_cct_s2d_batched": ("unet_cct", {"batched_aux": True}),
+          "unet_s2d_head2": ("unet", {})}
+S2D_3D = {"unet3d_s2d": ("unet3d", {}), "unet3d_dtc_s2d": ("unet3d_dtc", {}),
+          "unet3d_cct_s2d": ("unet3d_cct", {}),
+          "unet3d_cct_s2d_rc": ("unet3d_cct", {"remat": True,
+                                               "remat_policy": "convs"}),
+          "unet3d_cct_s2d_batched": ("unet3d_cct", {"batched_aux": True}),
+          "unet3d_cct_s2d_batched_rc": ("unet3d_cct", {
+              "batched_aux": True, "remat": True, "remat_policy": "convs"}),
+          "unet3d_urpc_s2d": ("unet3d_urpc", {}),
+          "vnet_s2d": ("vnet", {}), "vnet_dtc_s2d": ("vnet_dtc", {}),
+          "vnet_cct_s2d": ("vnet_cct", {}),
+          "vnet_cct_s2d_rc": ("vnet_cct", {"remat": True,
+                                           "remat_policy": "convs"}),
+          "vnet_cct_s2d_batched": ("vnet_cct", {"batched_aux": True}),
+          "vnet_cct_s2d_batched_rc": ("vnet_cct", {
+              "batched_aux": True, "remat": True, "remat_policy": "convs"})}
+S2D_HEADS = {"unet": ("out_conv",), "unet_urpc": DEEP4["unet_urpc"][0],
+             "unet_cct": ("out_conv",), "unet3d": ("conv",),
+             "unet3d_dtc": ("out_sdf", "out_seg"), "unet3d_cct": ("conv",),
+             "unet3d_urpc": ("dsv1", "dsv2", "dsv3", "dsv4"),
+             "vnet": VNET_EXCLUDE,
+             "vnet_dtc": ("out_sdf.conv2", "out_seg.conv2"),
+             "vnet_cct": ("main_decoder.out_tr.conv2",)}
+S2D_K1 = {"unet_s2d": 22, "unet_urpc_s2d": 22, "unet_cct_s2d": 58,
+          "unet_cct_s2d_batched": 22, "unet_s2d_head2": 22}
+S2D_OUT_TOL = 1e-4      # folded vs twin outputs, of max(1, max|output|)
+S2D_DELTA_TOL = 1e-3    # folded vs twin deltas, of max|delta|
+S2D_GRAD_TOL = 1e-3     # folded vs twin gradients, of the largest |grad|
+S2D_STATS_RTOL, S2D_STATS_ATOL = 1e-4, 1e-5
+S2D_FOLDED_DELTA_TOL = 1e-3     # (an) folded-layout delta vs K1's
+S2D_GRADS_F64 = ("unet3d_urpc_s2d",)
+
+
+def s2d_pair(name, card, nd):
+    """(the folded network of ``name``, its unfolded twin), both Hebbian
+    (swta_t, K=50, heads excluded), from the same generators (init on the
+    CPU; dropout and perturbations on the card, equal draws)."""
+    import torch
+    from hebbax_torch.hebb.spec import HebbSpec
+    from hebbax_torch.models import get_network, registry
+    from hebbax_torch.models.unet2d_s2d import UNet2DS2D
+    from hebbax_torch.utils.seeding import make_generator
+
+    table = S2D_2D if nd == 2 else S2D_3D
+    twin_name, opts = table[name]
+    spec = HebbSpec(mode="swta_t", k=K_TEMP,
+                    exclude=S2D_HEADS[twin_name])
+    in_ch = 3 if nd == 2 else 1
+    models = []
+    for folded in (True, False):
+        kw = dict(in_channels=in_ch, n_cls=2, hebb=spec, device=card,
+                  generator=make_generator(31),
+                  dropout_generator=make_generator(32, card))
+        if "cct" in name:
+            kw["perturb_generator"] = make_generator(33, card)
+        if not folded:
+            base = registry._REGISTRY[twin_name][0]
+            m = base(**opts, **kw)
+        elif name == "unet_s2d_head2":
+            m = UNet2DS2D(head_depth=2, **kw)
+        else:
+            m = get_network(name, in_ch, 2, hebb=spec, device=card,
+                            generator=kw["generator"],
+                            dropout_generator=kw["dropout_generator"],
+                            perturb_generator=kw.get("perturb_generator"))
+        models.append(m)
+    a, b = models
+    check(all(torch.equal(u, v) for u, v in zip(a.state_dict().values(),
+                                                b.state_dict().values())),
+          f"(s2d) {name}: the folded network's parameters are not its "
+          f"twin's")
+    return a, b
+
+
+def _outs(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def _max_rel(got, ref, floor=0.0):
+    """max |got - ref| over the pairs, over max(floor, max|ref|)."""
+    err = max(float((g.float() - r.float()).abs().max())
+              for g, r in zip(got, ref))
+    scale = max(floor, max(float(r.float().abs().max()) for r in ref))
+    return err / scale if scale else err
+
+
+def _deltas_rel(a, b):
+    check(a.keys() == b.keys() and a, f"(s2d) delta sites {sorted(a)} vs "
+                                      f"{sorted(b)}")
+    return max(float((a[k] - b[k]).abs().max())
+               / max(float(b[k].abs().max()), 1e-30) for k in a)
+
+
+def _stats(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _stats_ok(a, b):
+    import torch
+    return a.keys() == b.keys() and all(torch.allclose(
+        a[k], b[k], rtol=S2D_STATS_RTOL, atol=S2D_STATS_ATOL) for k in a)
+
+
+def _finetune_grads(model, x):
+    """One fine-tune step's gradients: the spec at alpha 0 (normalized
+    weights, no delta), the loss the mean square of every output."""
+    import dataclasses
+
+    import torch
+    from hebbax_torch.hebb.layers import HConv
+
+    for m in model.modules():
+        if isinstance(m, HConv) and m.spec is not None:
+            m.spec = dataclasses.replace(m.spec, alpha=0.0)
+    model.train()
+    loss = sum(torch.mean(o.float() ** 2) for o in _outs(model(x)))
+    names = [n for n, _ in model.named_parameters()]
+    return dict(zip(names, torch.autograd.grad(loss,
+                                               list(model.parameters()))))
+
+
+def _grads_rel(a, b):
+    scale = max(float(v.abs().max()) for v in b.values())
+    return max(float((a[k] - b[k]).abs().max()) for k in b) / scale
+
+
+class _SiteRecorder:
+    """Records the operands every ``kernels.swta_delta`` call receives
+    (what K1 sees at a site: the unfolded x and y), while installed."""
+
+    def __init__(self):
+        self.sites = []
+
+    def __enter__(self):
+        from hebbax_torch.hebb import kernels
+        self._orig = kernels.swta_delta
+
+        def recording(w, x, y, k, padding, stride=1, dtype=None, **kw):
+            self.sites.append((w.detach().clone(), x.detach().clone(),
+                               y.detach().clone(), k, padding, stride))
+            return self._orig(w, x, y, k, padding, stride,
+                              **({} if dtype is None else {"dtype": dtype}))
+        kernels.swta_delta = recording
+        return self
+
+    def __exit__(self, *exc):
+        from hebbax_torch.hebb import kernels
+        kernels.swta_delta = self._orig
+
+
+def _k1_vs_plain(sites):
+    """K1 against its plain version on recorded 2D stride-1 sites (these
+    launches are not a path's): the largest error over max|plain|."""
+    import torch
+    from hebbax_torch.hebb import kernels, rules
+
+    worst = 0.0
+    for w, x, y, k, pad, stride in sites:
+        got = kernels.SWTA_DELTA(w.float().contiguous(), x.float()
+                                 .contiguous(), y.float().contiguous(), k,
+                                 rules._tuple(pad, 2))
+        ref = rules.swta_conv_delta(w, x, y, k, rules._tuple(pad, 2))
+        torch.cuda.synchronize()
+        worst = max(worst, float((got - ref).abs().max())
+                    / float(ref.abs().max()))
+    return worst
+
+
+def s2d_twin_check(name, card, x, nd, tag):
+    """Eval outputs, one Hebbian training forward (K1 launches, deltas,
+    BN running statistics) and one fine-tune step's gradients of the
+    folded network of ``name`` against its unfolded twin; the folded
+    step's peak memory beside the twin's.  Returns (K1 launches of the
+    folded Hebbian forward, the record)."""
+    import torch
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.hebb.surgery import pop_deltas
+
+    on = torch.device(card).type
+    a, b = s2d_pair(name, card, nd)
+    a.eval(), b.eval()
+    with torch.no_grad():
+        eval_err = _max_rel(_outs(a(x)), _outs(b(x)), 1.0)
+    check(eval_err <= S2D_OUT_TOL,
+          f"{tag} {name}: eval outputs differ by {eval_err} of scale")
+    rec = {"eval_rel_err": eval_err}
+    a.train(), b.train()
+    with torch.no_grad(), _SiteRecorder() as sites:
+        kernels.SWTA_DELTA.launches = 0
+        out_a = _outs(a(x))
+        torch.cuda.synchronize()
+        launches = kernels.SWTA_DELTA.launches
+        out_b = _outs(b(x))
+    want = S2D_K1.get(name, 0) if on == "cuda" else launches
+    check(launches == want, f"{tag} {name}: K1 launched {launches} times "
+                            f"in the Hebbian forward, expected {want}")
+    rec["k1_launches"] = launches
+    rec["train_rel_err"] = _max_rel(out_a, out_b, 1.0)
+    check(rec["train_rel_err"] <= S2D_OUT_TOL,
+          f"{tag} {name}: training outputs differ by "
+          f"{rec['train_rel_err']} of scale")
+    rec["delta_rel_err"] = _deltas_rel(pop_deltas(a), pop_deltas(b))
+    check(rec["delta_rel_err"] <= S2D_DELTA_TOL,
+          f"{tag} {name}: deltas differ by {rec['delta_rel_err']} of their "
+          f"scale")
+    check(_stats_ok(_stats(a), _stats(b)),
+          f"{tag} {name}: BN running statistics differ from the twin's")
+    rec["stats_equal_within_tol"] = True
+    if nd == 2 and on == "cuda":
+        rec["k1_vs_plain_rel_err"] = _k1_vs_plain(
+            [s for s in sites.sites if len(s[0].shape) == 4])
+        check(rec["k1_vs_plain_rel_err"] <= TOL,
+              f"{tag} {name}: K1 vs its plain version "
+              f"{rec['k1_vs_plain_rel_err']} at the folded sites")
+    del sites, out_a, out_b
+    peaks = {}
+    grads = {}
+    # URPC's float32 gradients are ill-conditioned (hebbax's own folded
+    # and unfolded URPC differ by 2.8e-3 of the largest in float32, and
+    # hebbax holds them in float64): its step is compared in float64
+    f64 = name in S2D_GRADS_F64
+    rec["grad_dtype"] = "float64" if f64 else "float32"
+    for key, m in (("folded", a), ("twin", b)):
+        release()
+        reset_peak(on)
+        grads[key] = {k: v.detach() for k, v in _finetune_grads(
+            m.double() if f64 else m, x.double() if f64 else x).items()}
+        peaks[key] = peak_gib(on)
+    rec["grad_rel_err"] = _grads_rel(grads["folded"], grads["twin"])
+    check(rec["grad_rel_err"] <= S2D_GRAD_TOL,
+          f"{tag} {name}: fine-tune grads differ by {rec['grad_rel_err']} "
+          f"of the largest")
+    rec["peak_gib"] = peaks
+    log(f"{tag} {name}: eval {eval_err:.2e}, train "
+        f"{rec['train_rel_err']:.2e}, deltas {rec['delta_rel_err']:.2e}, "
+        f"grads {rec['grad_rel_err']:.2e} (of scale), K1 {launches}"
+        + (f" (vs plain {rec['k1_vs_plain_rel_err']:.2e})"
+           if "k1_vs_plain_rel_err" in rec else "")
+        + f", peak GiB folded {peaks['folded']} twin {peaks['twin']}")
+    del a, b, grads
+    release()
+    return launches, rec
+
+
+def phase_s2d_2d(card, images):
+    """(ak) Every 2D ``_s2d`` name and UNet2DS2D(head_depth=2) against its
+    unfolded twin at batch 32, 128x128."""
+    launches, record = {}, {}
+    for name in S2D_2D:
+        n, record[name] = s2d_twin_check(name, card, images, 2, "(ak)")
+        launches[f"ak_{name}"] = n
+    return launches, record
+
+
+def phase_s2d_3d(card):
+    """(al) Every 3D ``_s2d`` name against its unfolded twin at batch 1,
+    96x96x80: no K1 launch at the folded sites (the composed rule)."""
+    import torch
+    x = torch.from_numpy(np.random.default_rng(34).standard_normal(
+        (1, 1) + PATCH).astype(np.float32)).to(card)
+    launches, record = {}, {}
+    for name in S2D_3D:
+        n, record[name] = s2d_twin_check(name, card, x, 3, "(al)")
+        launches[f"al_{name}"] = n
+    return launches, record
+
+
+def _pair_timing(trainer, tag):
+    """Steady step ms (``measure_step``), the profiled device busy share
+    and the peak memory of one more train step of ``trainer``."""
+    import torch
+    from hebbax_torch.utils.timing import measure_step
+
+    on = "cuda" if torch.cuda.is_available() else "cpu"
+    run = step_runner(trainer, trainer.train_step)
+    run()
+    release()
+    reset_peak(on)
+    run()
+    peak = peak_gib(on)
+
+    probe = next(trainer_models(trainer)[0].parameters())
+
+    def step(s):
+        run()
+        return s + 1, probe
+    steady = measure_step(step, 0, n1=1, n2=3, warmup=1) * 1e3
+    prof = profile_steps(trainer, trainer.train_step, steady)
+    out = {"steady_ms": steady, "busy_share": prof["busy_share"],
+           "device_ms": prof["device_ms"], "groups_ms": prof["groups_ms"],
+           "peak_gib": peak}
+    log(f"(am) {tag}: steady {steady:.2f} ms, device busy "
+        f"{prof['busy_share']:.1%}, peak {peak} GiB")
+    return out
+
+
+def trainer_models(trainer):
+    state = trainer.state
+    return ([state.model1, state.model2] if hasattr(state, "model1")
+            else [state.model])
+
+
+def phase_s2d_measure(items, data_root, card, device="0"):
+    """(am) the layout measurement: steady step, busy share and peak
+    memory of train_sup_2d on unet_s2d / unet (batch 32, 128x128), EM on
+    unet3d_s2d / unet3d, URPC on unet3d_urpc_s2d / unet3d_urpc and
+    train_sup_3d on vnet_s2d / vnet (batch 1, 96x96x80); the cuDNN time
+    of one folded conv against its unfolded conv (forward, and forward
+    plus both backward convs) at unet3d's encoder1.conv1 / conv2 and
+    unet's in_conv.conv1 / conv2."""
+    import torch
+    import torch.nn.functional as F
+    from hebbax_torch.cli import common, common3d
+    from hebbax_torch.cli import train_semi_3d, train_sup_2d, train_sup_3d
+    from hebbax_torch.ops import s2d, s2d3d
+
+    record = {}
+    for net in ("unet_s2d", "unet"):
+        args = train_sup_2d.add_args(common.base_parser_2d()).parse_args(
+            cli_base(device) + ["-n", net, "--regime", "100"])
+        trainer = train_sup_2d.build(args, make_loaders(items, args, 100))
+        record[f"sup_2d_{net}"] = _pair_timing(trainer, f"train_sup_2d {net}")
+        del trainer
+        release()
+    semi = ["--regime", "50", "--optimizer", "sgd", "-l", "0.1", "--loss",
+            "dice", "--unsup_weight", "5"]
+    for algo, nets in (("em", ("unet3d_s2d", "unet3d")),
+                       ("urpc", ("unet3d_urpc_s2d", "unet3d_urpc"))):
+        for net in nets:
+            args = train_semi_3d.add_args(common3d.base_parser_3d(), algo)\
+                .parse_args(cli_base_3d(device, data_root, net)
+                            + SPV_3D_SEMI + semi)
+            trainer = train_semi_3d.build(args, algo)
+            record[f"{algo}_3d_{net}"] = _pair_timing(trainer,
+                                                      f"{algo} {net}")
+            del trainer
+            release()
+    for net in ("vnet_s2d", "vnet"):
+        args = train_sup_3d.add_args(common3d.base_parser_3d()).parse_args(
+            cli_base_3d(device, data_root, net) + SPV_3D_SEMI
+            + ["--regime", "50"])
+        trainer = train_sup_3d.build(args)
+        record[f"sup_3d_{net}"] = _pair_timing(trainer, f"train_sup_3d {net}")
+        del trainer
+        release()
+
+    g = torch.Generator().manual_seed(35)
+    convs = {}
+    for tag, x_shape, w_shape, fold in (
+            ("unet3d.encoder1.conv1", (1, 1) + PATCH, (64, 1, 3, 3, 3),
+             (2, 1, 1)),
+            ("unet3d.encoder1.conv2", (1, 64) + PATCH, (64, 64, 3, 3, 3),
+             (2, 1, 1)),
+            ("unet.in_conv.conv1", (BATCH, 3, SIZE, SIZE), (16, 3, 3, 3),
+             (2, 2)),
+            ("unet.in_conv.conv2", (BATCH, 16, SIZE, SIZE), (16, 16, 3, 3),
+             (2, 2))):
+        x = torch.randn(x_shape, generator=g).to(card)
+        w = (0.1 * torch.randn(w_shape, generator=g)).to(card)
+        conv = F.conv3d if len(x_shape) == 5 else F.conv2d
+        xf = s2d3d.fold_nd(x, fold)
+        wf = (s2d3d.fold_conv_kernel3(w, (w_shape[1],), fold)
+              if len(x_shape) == 5 else s2d.fold_conv_kernel(
+                  w, (w_shape[1],)))
+        ref = conv(x, w, padding=1)
+        got = s2d3d.unfold_nd(conv(xf, wf, padding=1), fold)
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        check(err <= S2D_OUT_TOL, f"(am) {tag}: the folded conv differs "
+                                  f"from the conv by {err}")
+
+        def fwd_bwd(conv=conv, x=x, w=w):
+            xx = x.detach().requires_grad_(True)
+            ww = w.detach().requires_grad_(True)
+            y = conv(xx, ww, padding=1)
+            torch.autograd.grad(y, [xx, ww], torch.ones_like(y))
+        xf_, wf_ = xf.detach(), wf.detach()
+        convs[tag] = {
+            "unfolded_fwd_ms": cuda_time_ms(lambda: conv(x, w, padding=1),
+                                            warmup=2, iters=5),
+            "folded_fwd_ms": cuda_time_ms(lambda: conv(xf_, wf_, padding=1),
+                                          warmup=2, iters=5),
+            "unfolded_fwd_bwd_ms": cuda_time_ms(fwd_bwd, warmup=1, iters=3),
+            "folded_fwd_bwd_ms": cuda_time_ms(
+                lambda: fwd_bwd(conv, xf_, wf_), warmup=1, iters=3),
+            "fold": list(fold), "rel_err": err}
+        log(f"(am) {tag} conv fold {fold}: " + json.dumps(convs[tag]))
+        del x, w, xf, wf, xf_, wf_, ref, got
+    record["convs"] = convs
+    release()
+    return record
+
+
+def phase_s2d_folded_delta(card, images):
+    """(an) ``HEBBAX_S2D_FOLDED_DELTA``: at the folded sites of a
+    ``unet_s2d`` Hebbian training forward (batch 32, 128x128), the
+    folded-layout delta against K1 on the unfolded operands: both timed
+    with CUDA events, their error against each other."""
+    import torch
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.hebb.layers import FoldedHConv
+    from hebbax_torch.hebb.spec import HebbSpec
+    from hebbax_torch.models import get_network
+    from hebbax_torch.ops import s2d
+    from hebbax_torch.utils.seeding import make_generator
+
+    spec = HebbSpec(mode="swta_t", k=K_TEMP, exclude=("out_conv",))
+    model = get_network("unet_s2d", 3, 2, hebb=spec, device=card,
+                        generator=make_generator(36),
+                        dropout_generator=make_generator(37, card))
+    sites, hooks = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, FoldedHConv) and m.spec is not None:
+            def hook(mod, inp, out, name=name):
+                sites.append((name, mod, inp[0].detach(), out.detach()))
+            hooks.append(m.register_forward_hook(hook))
+    model.train()
+    with torch.no_grad():
+        model(images)
+    for h in hooks:
+        h.remove()
+    for m in model.modules():
+        if isinstance(m, FoldedHConv):
+            m.delta = None
+    rows = []
+    for name, mod, xf, yf in sites:
+        w = mod.weight.detach()
+        pad = mod.padding
+
+        def folded():
+            return mod._folded_delta(mod.spec, "swta", w, xf, yf)
+
+        def k1():
+            xu = mod._unfold(xf, mod.in_groups)
+            yu = s2d.unfold(yf)
+            return kernels.SWTA_DELTA(w.contiguous(), xu.contiguous(),
+                                      yu.contiguous(), K_TEMP, pad)
+        with torch.no_grad():
+            a, b = folded(), k1()
+            err = float((a - b).abs().max()) / float(b.abs().max())
+            check(err <= S2D_FOLDED_DELTA_TOL,
+                  f"(an) {name}: folded-layout delta vs K1 {err}")
+            rows.append(dict(site=name, shape=list(xf.shape),
+                             folded_ms=cuda_time_ms(folded, 1, 5),
+                             k1_ms=cuda_time_ms(k1, 1, 5), rel_err=err))
+    total = {k: sum(r[k] for r in rows) for k in ("folded_ms", "k1_ms")}
+    worst = max(r["rel_err"] for r in rows)
+    log(f"(an) {len(rows)} folded sites: folded-layout delta "
+        f"{total['folded_ms']:.2f} ms, K1 (with the unfold) "
+        f"{total['k1_ms']:.2f} ms, error up to {worst:.2e} of max|delta|")
+    del model, sites
+    release()
+    return {**total, "rel_err_max": worst, "sites": rows}
+
+
+def phase_s2d(card, items, images, data_root, device="0"):
+    """Phase 14: (ak)-(an); returns the launches by path and the
+    ``s2d_path`` record."""
+    l_ak, r_ak = phase_s2d_2d(card, images)
+    l_al, r_al = phase_s2d_3d(card)
+    r_am = phase_s2d_measure(items, data_root, card, device)
+    r_an = phase_s2d_folded_delta(card, images)
+    launches = {**l_ak, **l_al}
+    return launches, {"launches": launches, "ak": r_ak, "al": r_al,
+                      "am": r_am, "an": r_an}
 
 
 def profile_summary(profiled):
@@ -3846,6 +4361,11 @@ def main():
     log("tail_path " + json.dumps(record_13))
     lap(13)
 
+    l_14, record_14 = phase_s2d(device, items, images, data_root)
+    launches.update(l_14)
+    log("s2d_path " + json.dumps(record_14))
+    lap(14)
+
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -3862,7 +4382,7 @@ def main():
             "superpix_pretrain", "superdiff_pretrain", "em_vae",
             "em_superpix", "test_em_vae", "test_em_superpix",
             "pretrain_3d", "sup_3d", "test_3d", *l_8, *l_9, *l_10,
-            *l_11, *l_12, *l_13)},
+            *l_11, *l_12, *l_13, *l_14)},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],

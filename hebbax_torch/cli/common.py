@@ -153,8 +153,9 @@ def hebbian_finetune_spec(meta):
 
 
 def pretrain_base_network(name):
-    """Folded (s2d) names map to their base for Hebbian pretraining; here
-    both run the same UNet2D, so only the name changes."""
+    """Folded (s2d) names map to their unfolded base for Hebbian
+    pretraining, as hebbax's do (its delta path does not fold); the
+    parameter trees are identical, so the snapshot hands off to either."""
     base = name.replace("_s2d_batched", "").replace("_s2d", "")
     from ..models import available_networks
     return base if base != name and base in available_networks() else name

@@ -8,12 +8,13 @@ VNet family ``vnet``, ``vnet_cct``, ``vnet_dtc``; the spiking VGG9
 ``snn_vgg`` and its non-spiking twin ``ann_vgg``.  (The RAD-DINO encoder
 and decoder are built by their trainer, as in hebbax.)
 
-The folded ``*_s2d`` names are registered on the same classes: their
-parameter trees are identical and the space-to-depth fold is a TPU
-layout, so the CLIs' defaults (``unet_s2d``, ``unet3d_s2d``,
-``unet3d_urpc_s2d``, ``vnet_s2d``, ...) run the unfolded network here;
-the baselines have no folded name in hebbax either.  Two options of the
-CCT networks carry over:
+The 17 ``*_s2d`` names build hebbax's space-to-depth folded classes
+(``unet2d_s2d``, ``unet3d_s2d``, ``urpc3d_s2d``, ``vnet_s2d``): the
+parameter trees are the unfolded twins', so snapshots cross between
+``unet`` and ``unet_s2d`` (``unet3d`` / ``unet3d_s2d``, ``vnet`` /
+``vnet_s2d``, ...) both ways, and only the compute layout differs.  The
+baselines have no folded name, in hebbax either.  Two options of the CCT
+networks carry over:
 
 * ``*_rc`` (``unet3d_cct_s2d_rc``, ``vnet_cct_s2d_rc``): the shared
   decoder recomputed in the backward with the conv outputs saved
@@ -37,8 +38,12 @@ from .unet2d import (UNet2D, UNetCCT2D, UNetSuperpix2D, UNetURPC2D,
 from .snn import ANNVGG, SNNVGG
 from .unet3d import (UNet3D, UNet3DCCT, UNet3DDTC, UNet3DSuperpix,
                      UNet3DVAE)
+from .unet2d_s2d import UNet2DS2D, UNetCCT2DS2D, UNetURPC2DS2D
+from .unet3d_s2d import UNet3DCCTS2D, UNet3DDTCS2D, UNet3DS2D
 from .urpc3d import UNet3DURPC
+from .urpc3d_s2d import UNet3DURPCS2D
 from .vnet import VNet, VNetCCT, VNetDTC
+from .vnet_s2d import VNetCCTS2D, VNetDTCS2D, VNetS2D
 
 _DEEP4 = dict(nd=2, outputs="deep4")
 _CCT = dict(nd=2, outputs="deep4", rngs=("perturb",))
@@ -75,12 +80,12 @@ def _vgg(cls):
 # name -> (factory, metadata)
 _REGISTRY = {
     "unet": (UNet2D, dict(nd=2, outputs="single")),
-    "unet_s2d": (UNet2D, dict(nd=2, outputs="single")),
+    "unet_s2d": (UNet2DS2D, dict(nd=2, outputs="single")),
     "unet_urpc": (UNetURPC2D, _DEEP4),
-    "unet_urpc_s2d": (UNetURPC2D, _DEEP4),
+    "unet_urpc_s2d": (UNetURPC2DS2D, _DEEP4),
     "unet_cct": (UNetCCT2D, _CCT),
-    "unet_cct_s2d": (UNetCCT2D, _CCT),
-    "unet_cct_s2d_batched": (_cct(UNetCCT2D, batched_aux=True), _CCT),
+    "unet_cct_s2d": (UNetCCT2DS2D, _CCT),
+    "unet_cct_s2d_batched": (_cct(UNetCCT2DS2D, batched_aux=True), _CCT),
     "unet_vae": (UNetVAE2D, dict(nd=2, outputs="vae", rngs=("latent",))),
     "unet_superpix": (UNetSuperpix2D, dict(nd=2, outputs="superpix")),
     "unet_ddpm": (DDPMUNet, dict(nd=2, outputs="ddpm")),
@@ -88,33 +93,33 @@ _REGISTRY = {
                                    rngs=("poisson",))),
     "ann_vgg": (_vgg(ANNVGG), dict(nd=2, outputs="single")),
     "unet3d": (UNet3D, dict(nd=3, outputs="single")),
-    "unet3d_s2d": (UNet3D, dict(nd=3, outputs="single")),
+    "unet3d_s2d": (UNet3DS2D, dict(nd=3, outputs="single")),
     "unet3d_min": (lambda **kw: UNet3D(init_features=32, **kw),
                    dict(nd=3, outputs="single")),
     "unet3d_dtc": (UNet3DDTC, _DTC_3D),
-    "unet3d_dtc_s2d": (UNet3DDTC, _DTC_3D),
+    "unet3d_dtc_s2d": (UNet3DDTCS2D, _DTC_3D),
     "unet3d_cct": (UNet3DCCT, _CCT_3D),
-    "unet3d_cct_s2d": (UNet3DCCT, _CCT_3D),
-    "unet3d_cct_s2d_rc": (_cct(UNet3DCCT, **_RC), _CCT_3D),
-    "unet3d_cct_s2d_batched": (_cct(UNet3DCCT, batched_aux=True), _CCT_3D),
+    "unet3d_cct_s2d": (UNet3DCCTS2D, _CCT_3D),
+    "unet3d_cct_s2d_rc": (_cct(UNet3DCCTS2D, **_RC), _CCT_3D),
+    "unet3d_cct_s2d_batched": (_cct(UNet3DCCTS2D, batched_aux=True), _CCT_3D),
     "unet3d_cct_s2d_batched_rc": (
-        _cct(UNet3DCCT, batched_aux=True, **_RC), _CCT_3D),
+        _cct(UNet3DCCTS2D, batched_aux=True, **_RC), _CCT_3D),
     "unet3d_cct_min": (lambda **kw: UNet3DCCT(init_features=32, **kw),
                        _CCT_3D),
     "unet3d_urpc": (UNet3DURPC, _DEEP4_3D),
-    "unet3d_urpc_s2d": (UNet3DURPC, _DEEP4_3D),
+    "unet3d_urpc_s2d": (UNet3DURPCS2D, _DEEP4_3D),
     "unet3d_vae": (UNet3DVAE, dict(nd=3, outputs="vae", rngs=("latent",))),
     "unet3d_superpix": (UNet3DSuperpix, dict(nd=3, outputs="superpix")),
     "vnet": (VNet, dict(nd=3, outputs="single")),
-    "vnet_s2d": (VNet, dict(nd=3, outputs="single")),
+    "vnet_s2d": (VNetS2D, dict(nd=3, outputs="single")),
     "vnet_cct": (VNetCCT, _CCT_3D),
-    "vnet_cct_s2d": (VNetCCT, _CCT_3D),
-    "vnet_cct_s2d_rc": (_cct(VNetCCT, **_RC), _CCT_3D),
-    "vnet_cct_s2d_batched": (_cct(VNetCCT, batched_aux=True), _CCT_3D),
+    "vnet_cct_s2d": (VNetCCTS2D, _CCT_3D),
+    "vnet_cct_s2d_rc": (_cct(VNetCCTS2D, **_RC), _CCT_3D),
+    "vnet_cct_s2d_batched": (_cct(VNetCCTS2D, batched_aux=True), _CCT_3D),
     "vnet_cct_s2d_batched_rc": (
-        _cct(VNetCCT, batched_aux=True, **_RC), _CCT_3D),
+        _cct(VNetCCTS2D, batched_aux=True, **_RC), _CCT_3D),
     "vnet_dtc": (VNetDTC, _DTC_3D),
-    "vnet_dtc_s2d": (VNetDTC, _DTC_3D),
+    "vnet_dtc_s2d": (VNetDTCS2D, _DTC_3D),
 }
 
 

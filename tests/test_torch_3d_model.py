@@ -34,6 +34,7 @@ from hebbax_torch.hebb.spec import HebbSpec
 from hebbax_torch.hebb.surgery import pop_deltas
 from hebbax_torch.models import get_network, network_meta
 from hebbax_torch.models.unet3d import UNet3D
+from hebbax_torch.models.unet3d_s2d import UNet3DCCTS2D, UNet3DS2D
 from hebbax_torch.utils import checkpoint as tckpt
 
 torch.set_num_threads(2)
@@ -135,10 +136,15 @@ def test_train_forward_deltas_and_bn_stats_match():
 
 
 def test_registry_names():
-    for name, f in (("unet3d", 64), ("unet3d_s2d", 64), ("unet3d_min", 32)):
+    """``unet3d`` / ``unet3d_min`` build UNet3D, ``unet3d_s2d`` the folded
+    UNet3DS2D (``models/unet3d_s2d.py``), with the same parameters."""
+    for name, f, cls in (("unet3d", 64, UNet3D),
+                         ("unet3d_s2d", 64, UNet3DS2D),
+                         ("unet3d_min", 32, UNet3D)):
         assert network_meta(name) == {"nd": 3, "outputs": "single",
                                       "rngs": ()}
         m = get_network(name, 1, 2, device="meta")
+        assert type(m) is cls
         assert m.conv.weight.shape == (2, f, 1, 1, 1)
         assert m.encoder.bottleneck.conv2.weight.shape[0] == 16 * f
     # the 4N-batched CCT decode: hebbax's deep4 metadata, one decode
@@ -146,6 +152,7 @@ def test_registry_names():
         assert network_meta(name) == {"nd": 3, "outputs": "deep4",
                                       "rngs": ("perturb",)}
         m = get_network(name, 1, 2, device="meta")
+        assert type(m) is UNet3DCCTS2D
         assert m.batched_aux and m.conv.weight.shape == (2, 64, 1, 1, 1)
 
 

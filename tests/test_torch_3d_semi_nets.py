@@ -45,6 +45,8 @@ from hebbax_torch.models import get_network, network_meta, primary_logits
 from hebbax_torch.models.common import CCT_PERTURB_KINDS
 from hebbax_torch.models.unet3d import UNet3D, UNet3DCCT, UNet3DDTC
 from hebbax_torch.models.urpc3d import UNet3DURPC
+from hebbax_torch.models.unet3d_s2d import UNet3DCCTS2D, UNet3DDTCS2D
+from hebbax_torch.models.urpc3d_s2d import UNet3DURPCS2D
 from hebbax_torch.ops.dropout import Dropout
 from hebbax_torch.utils import checkpoint as tckpt
 
@@ -158,29 +160,31 @@ def deltas_close(mut, tm, n_sites, tol=1e-3):
 # -- registry -----------------------------------------------------------------
 
 @pytest.mark.parametrize("name,cls", [
-    ("unet3d_dtc", UNet3DDTC), ("unet3d_dtc_s2d", UNet3DDTC),
-    ("unet3d_cct", UNet3DCCT), ("unet3d_cct_s2d", UNet3DCCT),
-    ("unet3d_cct_s2d_rc", UNet3DCCT), ("unet3d_cct_min", UNet3DCCT),
-    ("unet3d_urpc", UNet3DURPC), ("unet3d_urpc_s2d", UNet3DURPC)])
+    ("unet3d_dtc", UNet3DDTC), ("unet3d_dtc_s2d", UNet3DDTCS2D),
+    ("unet3d_cct", UNet3DCCT), ("unet3d_cct_s2d", UNet3DCCTS2D),
+    ("unet3d_cct_s2d_rc", UNet3DCCTS2D), ("unet3d_cct_min", UNet3DCCT),
+    ("unet3d_urpc", UNet3DURPC), ("unet3d_urpc_s2d", UNet3DURPCS2D)])
 def test_registry_entries(name, cls):
+    """The ``_s2d`` names build hebbax's folded classes
+    (``models/unet3d_s2d.py``, ``urpc3d_s2d.py``)."""
     assert network_meta(name) == j_meta(name)
     m = get_network(name, 1, 2, device="meta")
     assert type(m) is cls
-    if cls is UNet3DCCT:
+    if cls in (UNet3DCCT, UNet3DCCTS2D):
         f = 32 if name.endswith("_min") else 64
         assert m.conv.weight.shape == (2, f, 1, 1, 1)
 
 
 def test_batched_names_are_not_registered():
     """The two 4N-batched 3D CCT names are registered now (the name is
-    kept): hebbax's deep4 metadata, ``UNet3DCCT`` with the batched decode,
-    the ``_rc`` one recomputing its decoder with the conv outputs
-    saved."""
+    kept): hebbax's deep4 metadata, the folded ``UNet3DCCTS2D`` with the
+    batched decode, the ``_rc`` one recomputing its decoder with the conv
+    outputs saved."""
     for name in ("unet3d_cct_s2d_batched", "unet3d_cct_s2d_batched_rc"):
         assert network_meta(name) == j_meta(name)
         assert network_meta(name)["outputs"] == "deep4"
         m = get_network(name, 1, 2, device="meta")
-        assert type(m) is UNet3DCCT and m.batched_aux
+        assert type(m) is UNet3DCCTS2D and m.batched_aux
         assert m.remat == name.endswith("_rc")
         assert m.remat_policy == ("convs" if m.remat else None)
 

@@ -57,6 +57,7 @@ from hebbax_torch.engine.steps import make_probe_pretrain_step
 from hebbax_torch.hebb.layers import transposed_paths
 from hebbax_torch.models import get_network, network_meta
 from hebbax_torch.models.unet3d import UNet3D, UNet3DSuperpix, UNet3DVAE
+from hebbax_torch.models.unet3d_s2d import UNet3DS2D
 from hebbax_torch.ops import losses as tlosses
 from hebbax_torch.ops.dropout import Dropout
 from hebbax_torch.ops.losses import dice_loss
@@ -375,7 +376,7 @@ def narrow_registry(mp):
     from hebbax_torch.models import registry
     for name, cls in (("unet3d_vae", UNet3DVAE),
                       ("unet3d_superpix", UNet3DSuperpix),
-                      ("unet3d_s2d", UNet3D)):
+                      ("unet3d_s2d", UNet3DS2D)):
         meta = registry._REGISTRY[name][1]
         mp.setitem(registry._REGISTRY, name, (
             lambda _c=cls, **kw: _c(init_features=CHAIN_FEATURES, **kw),

@@ -51,6 +51,9 @@ from hebbax_torch.models.common import (BatchNorm3d, Dropout3d,
                                         checkpointed, remat_policy)
 from hebbax_torch.models.unet3d import UNet3DCCT
 from hebbax_torch.models.vnet import VNetCCT
+from hebbax_torch.models.unet2d_s2d import UNetCCT2DS2D
+from hebbax_torch.models.unet3d_s2d import UNet3DCCTS2D
+from hebbax_torch.models.vnet_s2d import VNetCCTS2D
 from hebbax_torch.ops.dropout import Dropout
 from hebbax_torch.utils import remat
 
@@ -93,7 +96,9 @@ def test_batched_names_take_their_options(name):
     m = get_network(name, 1, 2, device="meta")
     opts = _options(name)
     assert m.batched_aux
-    if isinstance(m, (UNet3DCCT, VNetCCT)):
+    # the folded classes, hebbax's (models/*_s2d.py)
+    assert type(m) in (UNetCCT2DS2D, UNet3DCCTS2D, VNetCCTS2D)
+    if isinstance(m, (UNet3DCCTS2D, VNetCCTS2D)):
         assert m.remat == name.endswith("_rc")
         assert m.remat_policy == opts["remat_policy"]
 

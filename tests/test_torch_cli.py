@@ -194,6 +194,10 @@ def test_port_imports_no_jax():
         "import hebbax_torch.cli.train_semi_raddino_decoder_2d\n"
         "import hebbax_torch.cli.test_raddino_decoder_2d\n"
         "import hebbax_torch.ops.augment_device, hebbax_torch.parallel\n"
+        "import hebbax_torch.ops.s2d, hebbax_torch.ops.s2d3d\n"
+        "import hebbax_torch.models.unet2d_s2d\n"
+        "import hebbax_torch.models.unet3d_s2d\n"
+        "import hebbax_torch.models.urpc3d_s2d, hebbax_torch.models.vnet_s2d\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'hebbax'))\n"

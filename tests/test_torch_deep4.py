@@ -47,6 +47,7 @@ from hebbax_torch.hebb.surgery import pop_deltas, pretrain_trainable_names
 from hebbax_torch.models import get_network, network_meta
 from hebbax_torch.models.common import CCT_PERTURB_KINDS
 from hebbax_torch.models.unet2d import UNet2D, UNetCCT2D, UNetURPC2D
+from hebbax_torch.models.unet2d_s2d import UNetCCT2DS2D, UNetURPC2DS2D
 from hebbax_torch.ops.dropout import Dropout
 from hebbax_torch.ops.losses import dice_loss
 
@@ -157,25 +158,34 @@ def count_deltas(monkeypatch):
 
 @pytest.mark.parametrize("name,base,cls", [
     ("unet_urpc", "unet_urpc", UNetURPC2D),
-    ("unet_urpc_s2d", "unet_urpc", UNetURPC2D),
+    ("unet_urpc_s2d", "unet_urpc", UNetURPC2DS2D),
     ("unet_cct", "unet_cct", UNetCCT2D),
-    ("unet_cct_s2d", "unet_cct", UNetCCT2D)])
+    ("unet_cct_s2d", "unet_cct", UNetCCT2DS2D)])
 def test_registry_entries(name, base, cls):
+    """The ``_s2d`` names build hebbax's folded classes
+    (``models/unet2d_s2d.py``) with the unfolded name's metadata and
+    parameters."""
     from hebbax.models.registry import network_meta as j_meta
     assert network_meta(name) == j_meta(name) == j_meta(base)
     g = torch.Generator().manual_seed(0)
-    assert isinstance(get_network(name, 3, 2, generator=g), cls)
+    m = get_network(name, 3, 2, generator=g)
+    assert type(m) is cls
+    base_m = get_network(base, 3, 2,
+                         generator=torch.Generator().manual_seed(0))
+    assert all(torch.equal(v, base_m.state_dict()[k])
+               for k, v in m.state_dict().items())
 
 
 def test_batched_cct_is_not_registered():
     """``unet_cct_s2d_batched`` is registered now (the name is kept):
-    hebbax's deep4 metadata, ``UNetCCT2D`` with the batched decode."""
+    hebbax's deep4 metadata, the folded ``UNetCCT2DS2D`` with the batched
+    decode."""
     from hebbax.models.registry import network_meta as j_meta
     name = "unet_cct_s2d_batched"
     assert network_meta(name) == j_meta(name)
     assert network_meta(name)["outputs"] == "deep4"
     m = get_network(name, 3, 2, generator=torch.Generator().manual_seed(0))
-    assert type(m) is UNetCCT2D and m.batched_aux
+    assert type(m) is UNetCCT2DS2D and m.batched_aux
 
 
 @pytest.mark.parametrize("name", ["unet_urpc", "unet_cct"])

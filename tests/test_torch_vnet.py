@@ -40,6 +40,7 @@ from hebbax_torch.hebb.layers import HConv, transposed_paths
 from hebbax_torch.hebb.spec import HebbSpec
 from hebbax_torch.models import get_network, network_meta, primary_logits
 from hebbax_torch.models.vnet import VNet, VNetCCT, VNetDTC
+from hebbax_torch.models.vnet_s2d import VNetCCTS2D, VNetDTCS2D, VNetS2D
 from hebbax_torch.ops.dropout import Dropout
 from hebbax_torch.utils import checkpoint as tckpt
 from hebbax_torch.utils.seeding import make_generator
@@ -87,17 +88,19 @@ def make_vnet_pair(name, seed=0, shape=(2, 32, 32, 32)):
 # -- registry -----------------------------------------------------------------
 
 @pytest.mark.parametrize("name,cls", [
-    ("vnet", VNet), ("vnet_s2d", VNet), ("vnet_cct", VNetCCT),
-    ("vnet_cct_s2d", VNetCCT), ("vnet_cct_s2d_rc", VNetCCT),
-    ("vnet_dtc", VNetDTC), ("vnet_dtc_s2d", VNetDTC)])
+    ("vnet", VNet), ("vnet_s2d", VNetS2D), ("vnet_cct", VNetCCT),
+    ("vnet_cct_s2d", VNetCCTS2D), ("vnet_cct_s2d_rc", VNetCCTS2D),
+    ("vnet_dtc", VNetDTC), ("vnet_dtc_s2d", VNetDTCS2D)])
 def test_registry_entries(name, cls):
+    """The plain names build the unfolded classes, the ``_s2d`` names
+    hebbax's folded ones (``models/vnet_s2d.py``)."""
     assert network_meta(name) == j_meta(name)
     m = get_network(name, 1, 2, device="meta")
     assert type(m) is cls
     a, b = torch.zeros(1), torch.ones(1)
-    if cls is VNetDTC:
+    if cls in (VNetDTC, VNetDTCS2D):
         assert primary_logits(name, (a, b)) is b
-    elif cls is VNetCCT:
+    elif cls in (VNetCCT, VNetCCTS2D):
         assert primary_logits(name, (a, b, b, b)) is a
     else:
         assert primary_logits(name, a) is a
@@ -105,14 +108,14 @@ def test_registry_entries(name, cls):
 
 def test_batched_names_are_not_registered():
     """The two 4N-batched VNet CCT names are registered now (the name is
-    kept): hebbax's deep4 metadata, ``VNetCCT`` with the batched decode,
-    the ``_rc`` one recomputing its decoder with the conv outputs
-    saved."""
+    kept): hebbax's deep4 metadata, the folded ``VNetCCTS2D`` with the
+    batched decode, the ``_rc`` one recomputing its decoder with the conv
+    outputs saved."""
     for name in ("vnet_cct_s2d_batched", "vnet_cct_s2d_batched_rc"):
         assert network_meta(name) == j_meta(name)
         assert network_meta(name)["outputs"] == "deep4"
         m = get_network(name, 1, 2, device="meta")
-        assert type(m) is VNetCCT and m.batched_aux
+        assert type(m) is VNetCCTS2D and m.batched_aux
         assert m.remat == name.endswith("_rc")
         assert m.remat_policy == ("convs" if m.remat else None)
 
