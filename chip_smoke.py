@@ -240,8 +240,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    folded-layout delta against K1 at the 8 Hebbian folded sites of a
    ``unet_s2d`` Hebbian forward, timed, with their error; one
    ``s2d_path`` line carries them;
-15. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
-   urpc_pretrain, cct_pretrain and the paths of 6 to 14), the card's
+15. spatial sharding (``hebbax_torch.parallel.spatial_sharding``, hebbax's
+   ``spatial_sharding``): eval forwards with the first spatial axis split
+   over gloo ranks that share the card (one spawn per rank count), each
+   rank's rows through explicit halo exchanges, the gathered outputs
+   held by rank 0 to the replicated forward in its own process (within
+   1e-4 of max(1, max|output|), TF32 off in every rank): (ao) ``unet``
+   at batch 32, 128x128, H over 2 and over 4 ranks; (ap) ``unet3d`` on
+   the whole 128x128x96 volume, D over 2; (aq) ``unet3d_urpc`` (its four
+   outputs) and ``vnet`` likewise; K1 0 launches on each rank; each
+   rank's forward ms (CUDA events) and peak memory beside the replicated
+   forward's; one ``spatial_path`` line carries them with (m)'s slider
+   seconds per volume;
+16. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
+   urpc_pretrain, cct_pretrain and the paths of 6 to 15), the card's
    name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
@@ -251,8 +263,9 @@ and writes only under ``build/`` beside this file.
 
 on a machine with N >= 2 cards runs phase 12's (ad) instead over N NCCL
 ranks, one per card ((af): a batch of 32 over N, the 3D batch N), held
-to one process on card 0 with the same gates, and prints one
-``data_parallel_cards_path`` line before the card's name and the last
+to one process on card 0 with the same gates, then phase 15's cases each
+over the N NCCL ranks, and prints one ``data_parallel_cards_path`` and
+one ``spatial_cards_path`` line before the card's name and the last
 line.
 """
 
@@ -1661,7 +1674,9 @@ def phase_semi_3d_train(data_root, snaps, device="0", runs=SEMI_3D,
     kaiming: no K1 launch, finite losses, best_JI.ckpt, the trunk equal
     to the Hebbian snapshot before the first step, for uamt / cps
     checkpoints2/last.ckpt, both models moved and model 2 unlike model 1;
-    then steady and profiled steps and the peak memory; (q) test_3d on
+    the run's own steps after the first as its steady times (they hold
+    within 1% of further steps), then profiled steps and the peak
+    memory; (q) test_3d on
     each run's best_JI.ckpt, as (m).  ``runs``, ``spv``, the tags and the
     launch keys' ``suffix`` serve phase 11's VNet runs too."""
     import gc
@@ -1725,7 +1740,7 @@ def phase_semi_3d_train(data_root, snaps, device="0", runs=SEMI_3D,
         log(f"({tag}) {algo} on {net}: {len(times)} steps, K1 launches "
             f"{launches}, step ms {[round(t, 3) for t in times]}, losses "
             f"{losses}")
-        out["steady"][algo] = steady_step_ms(trainer, raw_step)
+        out["steady"][algo] = times[1:]
         out["profile"][algo] = profile_steps(
             trainer, raw_step, float(np.median(out["steady"][algo])))
         log(f"({tag}) {algo} profile " + json.dumps(out["profile"][algo]))
@@ -4239,6 +4254,217 @@ def phase_s2d(card, items, images, data_root, device="0"):
                       "am": r_am, "an": r_an}
 
 
+# -- 15: spatial sharding -----------------------------------------------------
+
+# (tag, network, input shape, rank counts): the eval forwards hebbax runs
+# under spatial_sharding, at the main path's batch and the whole 3D volume
+SP_CASES = (("ao", "unet", (BATCH, 3, SIZE, SIZE), (2, 4)),
+            ("ap", NET_3D, (1, 1) + VOLUME, (2,)),
+            ("aq", "unet3d_urpc", (1, 1) + VOLUME, (2,)),
+            ("aq", "vnet", (1, 1) + VOLUME, (2,)))
+SP_TOL = 1e-4                   # of max(1, max|output|), sharded vs whole
+SP_TIMED = 3
+SP_TIMEOUT_S = 120
+SP_DEADLINE_S = 300
+
+
+def _sp_forward_ms(run, on, n=SP_TIMED):
+    """Milliseconds of ``n`` calls of ``run`` after one untimed call: CUDA
+    events on the card (each call ended by a synchronize), the host clock
+    on the CPU.  Every rank makes the same calls: they hold collectives."""
+    import torch
+    run()
+    times = []
+    for _ in range(n):
+        if on == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _sp_collectives(run, on):
+    """(all-reduce calls, their MiB, their host ms) in one call of
+    ``run``, each call timed between two synchronizes."""
+    import torch
+    import torch.distributed as dist
+
+    orig, calls = dist.all_reduce, []
+
+    def timed(t, *args, **kwargs):
+        if on == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(t, *args, **kwargs)
+        if on == "cuda":
+            torch.cuda.synchronize()
+        calls.append((t.numel() * t.element_size() / 2**20,
+                      (time.perf_counter() - t0) * 1e3))
+        return out
+    dist.all_reduce = timed
+    try:
+        run()
+    finally:
+        dist.all_reduce = orig
+    return len(calls), sum(c[0] for c in calls), sum(c[1] for c in calls)
+
+
+def sp_job(cases, device="0"):
+    """Phase 15's work on one rank (``run_ranks(..., data_parallel=False)``,
+    or one process): for each (tag, network, shape) the eval forward of
+    this rank's rows of the first spatial axis under
+    ``parallel.spatial_sharding``, timed, its K1 launches and peak memory;
+    rank 0 also runs the replicated forward in this process and holds the
+    gathered outputs to it (SP_TOL).  ``device``: "cpu", the card index of
+    ranks sharing it under gloo, or "rank" (NCCL: this rank's card)."""
+    import torch
+    import torch.distributed as dist
+    from hebbax_torch import parallel
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.models import get_network
+    from hebbax_torch.utils.seeding import make_generator
+
+    if device == "cpu":
+        card = torch.device("cpu")
+    else:
+        card = torch.device("cuda", torch.cuda.current_device()
+                            if device == "rank" else int(device))
+        torch.cuda.set_device(card)
+        # a spawned rank starts with PyTorch's defaults: cuDNN TF32 on
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    on = card.type
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    out = []
+    for tag, name, shape in cases:
+        model = get_network(name, shape[1], 2, device=card,
+                            generator=make_generator(41)).eval()
+        x = torch.from_numpy(np.random.default_rng(42).standard_normal(
+            shape).astype(np.float32)).to(card)
+        res = {"tag": tag, "name": name, "shape": list(shape),
+               "ranks": world, "rank": rank}
+        with torch.no_grad():
+            xr = parallel.shard_spatial(x, 0)
+            holder = {}
+
+            def sharded():
+                with parallel.spatial_sharding(0):
+                    holder["y"] = model(xr)
+            release()
+            reset_peak(on)
+            kernels.SWTA_DELTA.launches = 0
+            res["ms"] = _sp_forward_ms(sharded, on)
+            res["launches"] = kernels.SWTA_DELTA.launches
+            res["peak_gib"] = peak_gib(on)
+            (res["collectives"], res["collective_mib"],
+             res["collective_ms"]) = _sp_collectives(sharded, on)
+            res["local_rows"] = int(xr.shape[2])
+            outs = holder.pop("y")
+            outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+            got = [parallel.gather_spatial(o, 0) for o in outs]
+            del outs
+            if rank == 0:
+                release()
+                reset_peak(on)
+                res["replicated_ms"] = _sp_forward_ms(
+                    lambda: holder.__setitem__("ref", model(x)), on)
+                res["replicated_peak_gib"] = peak_gib(on)
+                ref = holder.pop("ref")
+                ref = list(ref) if isinstance(ref, (tuple, list)) else [ref]
+                res["max_rel"] = [max_rel(g, r) for g, r in zip(got, ref)]
+                res["finite"] = all(bool(torch.isfinite(g).all())
+                                    for g in got)
+                res["outputs"] = [list(g.shape) for g in got]
+                del ref
+            del got
+        del model, x, xr
+        out.append(res)
+    release()
+    return out
+
+
+def _sp_check(per_rank, n):
+    """Phase 15's gates on one spawn's results; the tag -> record map."""
+    rec = {}
+    for i, head in enumerate(per_rank[0]):
+        key = f"{head['tag']}_{head['name']}_x{n}"
+        shard = [r[i] for r in per_rank]
+        check(head["finite"] and all(e <= SP_TOL for e in head["max_rel"]),
+              f"(sp) {key}: sharded vs replicated max_rel "
+              f"{head['max_rel']} (gate {SP_TOL}), finite {head['finite']}")
+        check(all(s["launches"] == 0 for s in shard),
+              f"(sp) {key}: K1 launched {[s['launches'] for s in shard]}")
+        check(all(s["local_rows"] * n == head["shape"][2] for s in shard),
+              f"(sp) {key}: shard rows {[s['local_rows'] for s in shard]}")
+        rec[key] = {
+            "shape": head["shape"], "ranks": n, "outputs": head["outputs"],
+            "max_rel": head["max_rel"],
+            "rank_ms": [summary({"f": s["ms"]})["f"] for s in shard],
+            "replicated_ms": summary({"f": head["replicated_ms"]})["f"],
+            "rank_peak_gib": [s["peak_gib"] for s in shard],
+            "replicated_peak_gib": head["replicated_peak_gib"],
+            "collectives": head["collectives"],
+            "collective_mib": head["collective_mib"],
+            "collective_ms": [s["collective_ms"] for s in shard],
+            "launches": [s["launches"] for s in shard]}
+        log(f"(sp) {key}: max_rel {head['max_rel']}; ms per rank "
+            f"{[float(np.median(s['ms'])) for s in shard]} vs replicated "
+            f"{float(np.median(head['replicated_ms']))}; peak GiB per rank "
+            f"{[s['peak_gib'] for s in shard]} vs replicated "
+            f"{head['replicated_peak_gib']}; {head['collectives']} "
+            f"all-reduces of {head['collective_mib']:.1f} MiB, host ms "
+            f"{[round(s['collective_ms'], 2) for s in shard]}")
+    return rec
+
+
+def phase_sp(device="0", slider_s=None, cards=False):
+    """Phase 15: spatial sharding.  One spawn per rank count: (ao)
+    ``unet`` at batch BATCH, SIZE^2 over 2 and 4 ranks; (ap) ``NET_3D``
+    and (aq) ``unet3d_urpc`` / ``vnet`` on the whole VOLUME over 2 ranks,
+    the first spatial axis split; gloo ranks sharing the card (or, with
+    ``cards``, one NCCL rank per card, every case over all of them).
+    Returns the launches by path and the ``spatial_path`` record
+    (``slider_s``: phase 7's (m) seconds per volume of the slider)."""
+    import torch
+    from hebbax_torch import parallel
+
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count() if cards else 0
+    groups = {}
+    for tag, name, shape, counts in SP_CASES:
+        for n in ((n_cards,) if cards else counts):
+            groups.setdefault(n, []).append((tag, name, shape))
+    records, launches = {}, {}
+    for n, todo in sorted(groups.items()):
+        on_card = device != "cpu"
+        per_rank = parallel.run_ranks(
+            sp_job, n, (todo, "rank" if cards else device),
+            device_type="cuda" if on_card else "cpu",
+            backend="nccl" if cards else "gloo", timeout=SP_TIMEOUT_S,
+            deadline=SP_DEADLINE_S, data_parallel=False,
+            threads=None if on_card else 1)
+        rec = _sp_check(per_rank, n)
+        records.update(rec)
+        launches.update({f"sp_{k}": v["launches"][0]
+                         for k, v in rec.items()})
+        release()
+    record = {"paths": records, "launches": launches,
+              "backend": ("nccl, one rank per card" if cards else
+                          "gloo, ranks sharing one card"),
+              "slider_s_per_volume": slider_s, "tol": SP_TOL,
+              "seconds": time.perf_counter() - t0}
+    return launches, record
+
+
 def profile_summary(profiled):
     return {k: {"device_ms": v["device_ms"], "busy_share": v["busy_share"],
                 "groups_ms": v["groups_ms"], "top_ms": v["top_ms"][:3]}
@@ -4277,6 +4503,8 @@ def main():
                                   N_TRAIN_3D, N_VAL_3D, VOLUME)
         log("data_parallel_cards_path " + json.dumps(
             phase_dp_cards(items, data_root)))
+        log("spatial_cards_path " + json.dumps(
+            phase_sp("0", cards=True)[1]))
         return finish(device)
     from hebbax_torch.config.datasets import dataset_cfg, input_stats
     from hebbax_torch.data.augment2d import normalize
@@ -4366,6 +4594,11 @@ def main():
     log("s2d_path " + json.dumps(record_14))
     lap(14)
 
+    l_15, record_15 = phase_sp(slider_s=record_3d["test"]["seconds"]["slider"])
+    launches.update(l_15)
+    log("spatial_path " + json.dumps(record_15))
+    lap(15)
+
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -4382,7 +4615,7 @@ def main():
             "superpix_pretrain", "superdiff_pretrain", "em_vae",
             "em_superpix", "test_em_vae", "test_em_superpix",
             "pretrain_3d", "sup_3d", "test_3d", *l_8, *l_9, *l_10,
-            *l_11, *l_12, *l_13, *l_14)},
+            *l_11, *l_12, *l_13, *l_14, *l_15)},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],

@@ -310,7 +310,7 @@ def resolve_world(n, device):
 
 
 def _rank_entry(rank_, world, workdir, backend, device_type, threads,
-                timeout, fn, fn_args):
+                timeout, data_parallel, fn, fn_args):
     if threads:
         torch.set_num_threads(threads)
     if device_type == "cuda" and backend == "nccl":
@@ -320,7 +320,8 @@ def _rank_entry(rank_, world, workdir, backend, device_type, threads,
         world_size=world, rank=rank_,
         timeout=datetime.timedelta(seconds=timeout))
     try:
-        enable()
+        if data_parallel:
+            enable()
         result = fn(*fn_args)
         with open(os.path.join(workdir, f"result-{rank_}.pkl"), "wb") as f:
             pickle.dump(result, f)
@@ -330,10 +331,12 @@ def _rank_entry(rank_, world, workdir, backend, device_type, threads,
 
 
 def run_ranks(fn, world, fn_args=(), device_type="cpu", backend=None,
-              timeout=DEFAULT_TIMEOUT_S, deadline=None, threads=None):
+              timeout=DEFAULT_TIMEOUT_S, deadline=None, threads=None,
+              data_parallel=True):
     """Run ``fn(*fn_args)`` on ``world`` spawned ranks joined in one
-    process group, data parallelism enabled; returns every rank's result,
-    in rank order.
+    process group, data parallelism enabled (:func:`enable`) unless
+    ``data_parallel`` is False, as spatial sharding's ranks run
+    (:mod:`.spatial`); returns every rank's result, in rank order.
 
     backend: 'nccl' on the card (rank r on ``cuda:r``), 'gloo' on the CPU
     or for ranks that share a card (the default follows ``device_type``).
@@ -349,7 +352,7 @@ def run_ranks(fn, world, fn_args=(), device_type="cpu", backend=None,
         ctx = mp.start_processes(
             _rank_entry, nprocs=world, join=False, start_method="spawn",
             args=(world, workdir, backend, device_type, threads,
-                  float(timeout), fn, tuple(fn_args)))
+                  float(timeout), data_parallel, fn, tuple(fn_args)))
         end = None if deadline is None else time.monotonic() + deadline
         while not ctx.join(timeout=1.0):
             if end is not None and time.monotonic() > end:
@@ -359,7 +362,7 @@ def run_ranks(fn, world, fn_args=(), device_type="cpu", backend=None,
                 for p in ctx.processes:
                     p.join()
                 raise TimeoutError(
-                    f"data-parallel ranks still running after {deadline} s")
+                    f"ranks still running after {deadline} s")
         out = []
         for r in range(world):
             with open(os.path.join(workdir, f"result-{r}.pkl"), "rb") as f:
