@@ -252,8 +252,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    rank's forward ms (CUDA events) and peak memory beside the replicated
    forward's; one ``spatial_path`` line carries them with (m)'s slider
    seconds per volume;
-16. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
-   urpc_pretrain, cct_pretrain and the paths of 6 to 15), the card's
+16. the entry layer (``hebbax_torch.entry``, ``hebbax_torch.sweep``,
+   ``hebbax_torch.tools``, RAD-DINO's HF key map): (ar) a seeded numpy
+   dict in the HF dinov2 layout of ``microsoft/rad-dino`` (ViT-B/14, 12
+   blocks, 224^2) mapped onto the card's and the CPU's encoders after the
+   loader fell back offline: the mapped tensors equal to their sources
+   under the stated reshapes, card and CPU tokens at batch 2 within 1e-4
+   of max(1, max|tokens|), the frozen forward timed; (as) every line of
+   the 19 ``reproduce_*.sh`` sweeps recorded (bash expands each, the
+   recording ``python`` keeps its words; in threads beside (ar) and
+   (at)) and parsed with the port's parsers, ``python -m hebbax_torch.sweep
+   --record`` listing the Hebbian pretraining sweep's lines as recorded,
+   then that sweep's first line run in-process through ``entry.run``
+   (only ``--path_dataset``, ``--path_root_exp`` and ``-e 1`` changed;
+   K1 22 launches per step); (at) the nine tools
+   on phase 7's volumes, (m)'s predictions, (a)'s snapshot and the run
+   tree (the 2D ones where PIL is installed): every output written,
+   finite and in range, ``mask2sdf`` and ``atrial.postprocess`` equal to
+   the bit to phase 7's ``mask_sdf1`` maps and (m)'s post-processing; K1
+   0 launches in (ar) and (at); one ``entry_path`` line carries them;
+17. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
+   urpc_pretrain, cct_pretrain and the paths of 6 to 16), the card's
    name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
@@ -618,8 +637,11 @@ def profile_steps(trainer, step, steady_ms, n=None):
     """torch.profiler over n train steps on fixed batches (3, or 2 for a
     step over half a second): device time per step by kernel class, its
     share of the unprofiled step's median host time ``steady_ms``, and
-    the heaviest kernels.  Made after the path's launch count was
-    read."""
+    the heaviest kernels.  Made after the path's launch count was read.
+    Only the device is traced, and its kernel records are summed as the
+    profiler returns them: tracing the host's ops as well and grouping
+    them with ``key_averages`` took up to 11 s per profile of a 2D semi
+    step on an H100 and moved its device time by under 1%."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -627,18 +649,15 @@ def profile_steps(trainer, step, steady_ms, n=None):
 
     run = step_runner(trainer, step)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             run()
         torch.cuda.synchronize()
     kernels = {}
-    for evt in prof.key_averages():
-        if str(evt.device_type).endswith("CUDA"):
-            us = getattr(evt, "device_time_total", None)
-            if us is None:
-                us = evt.cuda_time_total
-            kernels[evt.key] = us / 1e3 / n
+    for evt in prof.profiler.kineto_results.events():
+        if str(evt.device_type()).endswith("CUDA"):
+            kernels[evt.name()] = (kernels.get(evt.name(), 0.0)
+                                   + evt.duration_ns() / 1e6 / n)
     groups = {}
     for name, ms in kernels.items():
         g = kernel_group(name)
@@ -1574,7 +1593,8 @@ def phase_3d(card, device="0"):
         "delta_sites": ref["sites"],
         "delta_sites_ms": sum(r["ms"] for r in ref["sites"]),
         "delta_sites_bound_ms": sum(r["bound_ms"] for r in ref["sites"]),
-        "test": test, "patch": list(PATCH), "volume": list(VOLUME)}
+        "test": test, "patch": list(PATCH), "volume": list(VOLUME),
+        "run": run}
     return launches, record, data_root, snap
 
 
@@ -4465,6 +4485,475 @@ def phase_sp(device="0", slider_s=None, cards=False):
     return launches, record
 
 
+# -- phase 16: the entry layer ------------------------------------------------
+
+AR_TOL = 1e-4                   # of max(1, max|tokens|), card vs CPU
+AR_BATCH = 2                    # the RAD-DINO sweep's batch size
+SWEEP_LINE = "reproduce_hebbian_unsupervised_pretraining_2d.sh"
+N_SWEEPS = 19
+
+
+def raddino_hf_dict(depth=12, seed=0):
+    """An HF dinov2 state dict of ``microsoft/rad-dino``'s key names and
+    shapes (ViT-B/14 at 224^2, DINOv2's ``mask_token`` and LayerScale
+    ``lambda1`` included), made with numpy from ``seed`` near a trained
+    ViT's scales."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, scale=0.02):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def gain(n):
+        return (1.0 + 0.1 * rng.standard_normal(n)).astype(np.float32)
+
+    e = "embeddings."
+    sd = {e + "cls_token": w(1, 1, 768, scale=1.0),
+          e + "mask_token": w(1, 768),
+          e + "position_embeddings": w(1, 257, 768),
+          e + "patch_embeddings.projection.weight": w(768, 3, 14, 14),
+          e + "patch_embeddings.projection.bias": w(768)}
+    for i in range(depth):
+        b = f"encoder.layer.{i}."
+        for n in ("norm1", "norm2"):
+            sd[b + n + ".weight"], sd[b + n + ".bias"] = gain(768), w(768)
+        for n in ("attention.attention.query", "attention.attention.key",
+                  "attention.attention.value", "attention.output.dense"):
+            sd[b + n + ".weight"], sd[b + n + ".bias"] = w(768, 768), w(768)
+        sd[b + "mlp.fc1.weight"], sd[b + "mlp.fc1.bias"] = w(3072, 768), \
+            w(3072)
+        sd[b + "mlp.fc2.weight"], sd[b + "mlp.fc2.bias"] = w(768, 3072), \
+            w(768)
+        sd[b + "layer_scale1.lambda1"] = gain(768)
+        sd[b + "layer_scale2.lambda1"] = gain(768)
+    sd["layernorm.weight"], sd["layernorm.bias"] = gain(768), w(768)
+    return sd
+
+
+def raddino_expected(sd, depth=12):
+    """The port's parameter name -> its HF source under the stated
+    reshapes: q / k / v weights (12, 64, 768) and biases (12, 64), the
+    output projection (768, 12, 64), everything else as it is."""
+    import torch
+
+    e = "embeddings."
+    out = {"patch_embed.weight": sd[e + "patch_embeddings.projection.weight"],
+           "patch_embed.bias": sd[e + "patch_embeddings.projection.bias"],
+           "cls_token": sd[e + "cls_token"],
+           "pos_embed": sd[e + "position_embeddings"],
+           "norm.weight": sd["layernorm.weight"],
+           "norm.bias": sd["layernorm.bias"]}
+    for i in range(depth):
+        b, p = f"encoder.layer.{i}.", f"block{i}."
+        for n in ("norm1", "norm2", "mlp.fc1", "mlp.fc2"):
+            for leaf in ("weight", "bias"):
+                out[p + n.replace("mlp.", "") + "." + leaf] = \
+                    sd[b + n + "." + leaf]
+        for n in ("query", "key", "value"):
+            src = b + "attention.attention." + n
+            out[p + f"attn.{n}.weight"] = sd[src + ".weight"].reshape(
+                12, 64, 768)
+            out[p + f"attn.{n}.bias"] = sd[src + ".bias"].reshape(12, 64)
+        out[p + "attn.out.weight"] = sd[
+            b + "attention.output.dense.weight"].reshape(768, 12, 64)
+        out[p + "attn.out.bias"] = sd[b + "attention.output.dense.bias"]
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in out.items()}
+
+
+def phase_raddino_map(card):
+    """(ar) RAD-DINO's HF key map at full width: the loader falls back
+    offline (the card's encoder unchanged), a seeded HF-layout dict mapped
+    onto the card's and the CPU's ViT-B/14 encoders, the card's tensors equal
+    to their sources under the stated reshapes, card and CPU tokens at
+    batch 2, 224^2 within AR_TOL of max(1, max|tokens|) (TF32 off), and
+    the frozen forward timed with CUDA events; no K1 launch."""
+    import torch
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.models import raddino
+    from hebbax_torch.utils.seeding import make_generator
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(name, since):
+        parts[name] = time.perf_counter() - since
+        return time.perf_counter()
+
+    kernels.SWTA_DELTA.launches = 0
+    sd = raddino_hf_dict()
+    t = lap("dict", t0)
+    enc = raddino.ViTEncoder(device=card, generator=make_generator(0))
+    enc.requires_grad_(False).eval()
+    before = {k: v.clone() for k, v in enc.state_dict().items()}
+    t = lap("init", t)
+    got, ok = raddino.load_hf_rad_dino_params(enc)
+    check(got is enc and not ok, "(ar) the HF loader did not fall back "
+          "offline")
+    check(all(torch.equal(v, before[k]) for k, v in enc.state_dict().items()),
+          "(ar) the offline loader changed the encoder")
+    del before
+    t = lap("loader", t)
+    encs = {"card": raddino.apply_hf_state_dict(enc, sd),
+            "cpu": raddino.apply_hf_state_dict(raddino.ViTEncoder(), sd)}
+    t = lap("map", t)
+    want = raddino_expected(sd)
+    mapped = encs["card"].state_dict()
+    check(set(mapped) == set(want),
+          f"(ar) mapped names {sorted(set(mapped) ^ set(want))[:5]}")
+    off = [k for k, v in want.items() if not torch.equal(mapped[k].cpu(), v)]
+    check(not off, f"(ar) {off[:5]} ({len(off)}) differ from their sources")
+    check(not any(p.requires_grad for p in encs["card"].parameters()),
+          "(ar) an encoder parameter takes grad")
+    t = lap("check", t)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (AR_BATCH, 3, 224, 224)).astype(np.float32))
+    with torch.no_grad():
+        tok_cpu = encs["cpu"].eval()(x)
+        x_card = x.to(card)
+        tok_card = encs["card"](x_card)
+        scale = max(1.0, float(tok_cpu.abs().max()))
+        err = float((tok_card.cpu() - tok_cpu).abs().max())
+        check(tuple(tok_card.shape) == (AR_BATCH, 257, 768)
+              and bool(torch.isfinite(tok_card).all()),
+              f"(ar) tokens {tuple(tok_card.shape)}")
+        check(err <= AR_TOL * scale,
+              f"(ar) card vs CPU tokens {err:.3e} > {AR_TOL} x {scale:.3f}")
+        ms = (cuda_time_ms(lambda: encs["card"](x_card))
+              if card.type == "cuda" else None)
+    lap("tokens", t)
+    launches = kernels.SWTA_DELTA.launches
+    check(launches == 0, f"(ar) launched K1 {launches} times")
+    seconds = time.perf_counter() - t0
+    log(f"(ar) RAD-DINO HF map: {len(mapped)} tensors of ViT-B/14 (12 "
+        f"blocks) equal to their sources; card vs CPU tokens max abs "
+        f"{err:.3e} at scale {scale:.3f}; frozen forward at batch "
+        f"{AR_BATCH}, 224^2: {ms} ms (CUDA events); {seconds:.1f} s "
+        + json.dumps(parts))
+    n = len(mapped)
+    del enc, encs, mapped, want, sd, tok_card, x_card
+    release()
+    return launches, {"tensors": n, "max_abs": err, "scale": scale,
+                      "forward_ms": ms, "batch": AR_BATCH,
+                      "seconds": seconds, "parts_s": parts}
+
+
+def _with(words, flag, value):
+    """``words`` with ``flag``'s value replaced, or the pair appended."""
+    words = list(words)
+    if flag in words:
+        words[words.index(flag) + 1] = value
+    else:
+        words += [flag, value]
+    return words
+
+
+def start_sweep_records():
+    """Start what (as) reads, to run beside (ar) and (at): each of the 19
+    sweeps recorded by ``hebbax_torch.sweep.record`` in a thread of its
+    own (bash expands the script, the recording ``python`` keeps each
+    line's words), and the command line ``python -m hebbax_torch.sweep
+    <SWEEP_LINE> --record <file>`` in a process."""
+    import glob
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hebbax_torch import sweep
+
+    def timed_record(script):
+        t0 = time.perf_counter()
+        lines = sweep.record(script)
+        return lines, time.perf_counter() - t0
+
+    scripts = sorted(glob.glob(os.path.join(ROOT, "reproduce_*.sh")))
+    check(len(scripts) == N_SWEEPS, f"(as) {len(scripts)} sweeps")
+    pool = ThreadPoolExecutor(len(scripts))
+    futures = {s: pool.submit(timed_record, s) for s in scripts}
+    pool.shutdown(wait=False)
+    listing = os.path.join(RUN_DIR, "sweep_lines.txt")
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "hebbax_torch.sweep", SWEEP_LINE, "--record",
+         listing], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return {"futures": futures, "cli": cli, "listing": listing}
+
+
+def phase_sweep_lines(items, pending, device="0"):
+    """(as) every line of the 19 sweeps (recorded by
+    :func:`start_sweep_records`) parsed with the port's parsers, the
+    command line's listing of SWEEP_LINE equal to them; then that
+    sweep's first line run in-process through ``entry.run`` on the
+    synthetic GlaS items, only ``--path_dataset``, ``--path_root_exp``
+    and the epochs (``-e 1``) changed: K1 22 launches per step, finite
+    losses, last.ckpt."""
+    import csv
+    import shlex
+
+    import torch
+    from hebbax_torch import entry, sweep
+    from hebbax_torch.cli import pretrain_hebbian_unsup_2d as pretrain
+    from hebbax_torch.hebb import kernels
+
+    done = {s: f.result() for s, f in pending["futures"].items()}
+    recorded = {s: lines for s, (lines, _) in done.items()}
+    record_s = {os.path.basename(s): sec for s, (_, sec) in done.items()}
+    t0 = time.perf_counter()
+    lines = {}
+    for script, words in recorded.items():
+        check(words, f"(as) {script} recorded no line")
+        lines[os.path.basename(script)] = len(sweep.parse_lines(words))
+    parse_s = time.perf_counter() - t0
+    _, err = pending["cli"].communicate(timeout=300)
+    with open(pending["listing"]) as f:
+        listed = [shlex.split(line)[1:] for line in f]
+    check(pending["cli"].returncode == 0
+          and listed == recorded[os.path.join(ROOT, SWEEP_LINE)],
+          f"(as) python -m hebbax_torch.sweep --record: {err[-2000:]}")
+    log(f"(as) sweeps: {sum(lines.values())} lines recorded (slowest "
+        f"script {max(record_s.values()):.2f} s, beside (ar) and (at)) and "
+        f"parsed in {parse_s:.2f} s; per script " + json.dumps(lines))
+
+    words = recorded[os.path.join(ROOT, SWEEP_LINE)][0]
+    root = os.path.join(RUN_DIR, "sweep_line")
+    argv = _with(_with(words[1:], "--path_dataset",
+                       os.path.join(root, "data", "GlaS")),
+                 "--path_root_exp", os.path.join(root, "runs"))
+    argv = _with(argv, "-e", "1")
+    if device != "0":
+        argv = _with(argv, "--device", device)
+    args = entry.parse(words[0], argv)
+    loaders = make_loaders(items, args, 100)
+    times = []
+    raw_build = pretrain.build
+
+    def timed_build(*a, **kw):
+        trainer = raw_build(*a, **kw)
+        trainer.train_step = timed_step(trainer.train_step, times)
+        return trainer
+
+    pretrain.build = timed_build
+    kernels.SWTA_DELTA.launches = 0
+    t0 = time.perf_counter()
+    try:
+        entry.run(words[0], argv, loaders=loaders)
+    finally:
+        pretrain.build = raw_build
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kernels.SWTA_DELTA.launches
+    steps = len(times)
+    check(steps == len(loaders["train"]) and steps > 0,
+          f"(as) the line ran {steps} steps")
+    check(launches == 22 * steps, f"(as) the line launched K1 {launches} "
+          f"times, expected 22 x {steps}")
+    ckpts = [d for d, _, files in os.walk(os.path.join(root, "runs"))
+             if "last.ckpt" in files]
+    check(len(ckpts) == 1, f"(as) last.ckpt in {ckpts}")
+    with open(os.path.join(os.path.dirname(ckpts[0]),
+                           "train_log.csv")) as f:
+        losses = [float(row["loss"]) for row in csv.DictReader(f)]
+    check(losses and all(np.isfinite(losses)), f"(as) losses {losses}")
+    log(f"(as) {SWEEP_LINE} line 1 ({args.network}, batch "
+        f"{args.batch_size}, K={args.hebb_inv_temp}): {steps} steps, K1 "
+        f"launches {launches}, step ms median {np.median(times):.3f} "
+        f"(min {min(times):.3f}), the run {run_s:.2f} s")
+    return {"sweep_line": launches}, {
+        "lines": lines, "record_s": record_s, "parse_s": parse_s,
+        "line": ["python"] + [words[0]] + argv, "steps": steps,
+        "step_ms": summary({"line": times})["line"], "run_s": run_s}
+
+
+def _png_size(path):
+    """(width, height) of a grey or RGB PNG the port wrote, its
+    scanlines' length checked."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"(at) {path} is not a PNG")
+    w, h, _, colour = struct.unpack(">IIBB", data[16:26])
+    idat, pos = b"", 8
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    check(len(zlib.decompress(idat)) == h * (1 + w * (3 if colour == 2
+                                                      else 1)),
+          f"(at) {path}: scanlines")
+    return w, h
+
+
+def _nrrds(d):
+    from hebbax_torch.data.nrrd_io import read_nrrd
+    return {n: read_nrrd(os.path.join(d, n))[0] for n in sorted(os.listdir(d))}
+
+
+def phase_tools(items, data_root, run_3d, snap_a):
+    """(at) the nine tools of ``hebbax_torch.tools`` on this run's files:
+    ``atrial.preprocess`` on phase 7's val volumes and masks laid out as
+    raw cases, ``atrial.postprocess`` and ``eval --if_3D`` on (m)'s
+    ``test_3d`` predictions, ``mask2sdf`` (equal to the bit to the
+    ``mask_sdf1`` maps phase 7 wrote), ``res_image_mask`` and
+    ``wavelet3D`` on the val volumes, ``visualize_weights`` on (a)'s
+    snapshot, ``report_results`` on the run tree; ``wavelet2D`` and the 2D
+    ``eval`` on a 2D test's predictions where PIL is installed (they read
+    PNGs with it).  Each output written, finite and in range; no K1
+    launch."""
+    from hebbax_torch.hebb import kernels
+    from hebbax_torch.tools import (eval as eval_tool, mask2sdf,
+                                    report_results, res_image_mask,
+                                    visualize_weights, wavelet2D, wavelet3D)
+    from hebbax_torch.tools.atrial import postprocess, preprocess
+    from hebbax_torch.utils.images import save_png
+
+    root = os.path.join(RUN_DIR, "tools")
+    shutil.rmtree(root, ignore_errors=True)
+    val = os.path.join(data_root, "val")
+    seconds = {}
+    kernels.SWTA_DELTA.launches = 0
+
+    def run(name, tool, argv):
+        t0 = time.perf_counter()
+        out = tool.main(argv)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    for name in sorted(os.listdir(os.path.join(val, "image"))):
+        case = os.path.join(root, "raw", name[:-5])
+        os.makedirs(case)
+        os.symlink(os.path.join(val, "image", name),
+                   os.path.join(case, "lgemri.nrrd"))
+        os.symlink(os.path.join(val, "mask", name),
+                   os.path.join(case, "laendo.nrrd"))
+    run("atrial.preprocess", preprocess, [
+        "--data_path", os.path.join(root, "raw"), "--save_image_path",
+        os.path.join(root, "crop", "image"), "--save_mask_path",
+        os.path.join(root, "crop", "mask")])
+    images, masks = _nrrds(os.path.join(val, "image")), \
+        _nrrds(os.path.join(val, "mask"))
+    crops = _nrrds(os.path.join(root, "crop", "mask"))
+    for n, img in _nrrds(os.path.join(root, "crop", "image")).items():
+        check(np.isfinite(img).all() and img.shape == crops[n].shape
+              and img.shape[2] == images[n].shape[2]
+              and all(a <= b for a, b in zip(img.shape, images[n].shape)),
+              f"(at) preprocess {n}: {img.shape}")
+        check(crops[n].sum() == masks[n].sum(), f"(at) preprocess {n} cut "
+              f"the mask")
+
+    preds = os.path.join(run_3d, "test_seg_preds")
+    run("atrial.postprocess", postprocess, [
+        "--pred_path", preds, "--save_path", os.path.join(root, "post")])
+    post = _nrrds(os.path.join(root, "post"))
+    ref = _nrrds(os.path.join(run_3d, "test_seg_preds_postprocessed"))
+    check(sorted(post) == sorted(ref) and all(
+        np.array_equal(post[n], ref[n]) for n in ref),
+        "(at) postprocess differs from test_3d's post-processing")
+    res_3d = run("eval", eval_tool, [
+        "--pred_path", os.path.join(root, "post"), "--mask_path",
+        os.path.join(val, "mask"), "--if_3D", "1"])
+    check(0.0 <= res_3d["dice"] <= 1.0 and 0.0 <= res_3d["jaccard"] <= 1.0,
+          f"(at) eval 3D {res_3d}")
+    if any(p.any() for p in post.values()):
+        check(np.isfinite(res_3d["95hd"]) and np.isfinite(res_3d["asd"]),
+              f"(at) eval 3D distances {res_3d}")
+
+    run("mask2sdf", mask2sdf, ["--mask_path", os.path.join(val, "mask"),
+                               "--out_path", os.path.join(root, "sdf")])
+    sdf, ref = _nrrds(os.path.join(root, "sdf")), \
+        _nrrds(os.path.join(val, "mask_sdf1"))
+    check(sorted(sdf) == sorted(ref) and all(
+        np.array_equal(sdf[n], ref[n]) and np.abs(sdf[n]).max() <= 1.0
+        for n in ref), "(at) mask2sdf differs from phase 7's mask_sdf1")
+
+    run("res_image_mask", res_image_mask, [
+        "--image_path", os.path.join(val, "image"), "--out_path",
+        os.path.join(root, "res")])
+    for n, r in _nrrds(os.path.join(root, "res")).items():
+        check(r.shape == images[n].shape and np.isfinite(r).all()
+              and not r[..., 0].any(), f"(at) res_image_mask {n}")
+    run("wavelet3D", wavelet3D, [
+        "--image_path", os.path.join(val, "image"), "--L_path",
+        os.path.join(root, "w3", "L"), "--H_path",
+        os.path.join(root, "w3", "H")])
+    for band in ("L", "H"):
+        for n, v in _nrrds(os.path.join(root, "w3", band)).items():
+            check(v.shape == images[n].shape and np.isfinite(v).all(),
+                  f"(at) wavelet3D {band} {n}")
+
+    png = os.path.join(root, "filters.png")
+    run("visualize_weights", visualize_weights, [
+        "--snapshot", snap_a, "--out", png])
+    w, h = _png_size(png)
+    check(w > 0 and h > 0 and w % 16 == 0 and h % 16 == 0,
+          f"(at) visualize_weights {w}x{h}")
+
+    table = run("report_results", report_results, [
+        "--exp_root", RUN_DIR, "--out", os.path.join(root, "summary.csv")])
+    check(table and os.path.exists(os.path.join(root, "summary.csv")),
+          "(at) report_results found no run")
+    for group, stats in table.items():
+        for metric, (mean, std, count) in stats.items():
+            check(count >= 0 and (count == 0 or np.isfinite(mean)),
+                  f"(at) report_results {group} {metric}")
+            if metric in ("segm/dice", "segm/jaccard") and count:
+                check(0.0 <= mean <= 1.0, f"(at) {group} {metric} {mean}")
+
+    try:
+        import PIL  # noqa: F401  (the 2D tools read PNGs with it)
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    if have_pil:
+        pred_2d = sorted(d for d, _, files in os.walk(RUN_DIR)
+                         if os.path.basename(d) == "test_seg_preds"
+                         and any(f.endswith(".png") for f in files))
+        check(pred_2d, "(at) no 2D test predictions")
+        names = sorted(os.listdir(pred_2d[0]))
+        mask_dir = os.path.join(root, "mask_2d")
+        os.makedirs(mask_dir)
+        by_name = {n: m for n, _, m in items["val"]}
+        for n in names:
+            save_png(by_name[n] * 255, os.path.join(mask_dir, n))
+        res_2d = run("eval_2d", eval_tool, ["--pred_path", pred_2d[0],
+                                            "--mask_path", mask_dir])
+        check(0.0 <= res_2d["dice"] <= 1.0, f"(at) eval 2D {res_2d}")
+        run("wavelet2D", wavelet2D, [
+            "--image_path", mask_dir, "--L_path",
+            os.path.join(root, "w2", "L"), "--H_path",
+            os.path.join(root, "w2", "H")])
+        for band in ("L", "H"):
+            check(sorted(os.listdir(os.path.join(root, "w2", band)))
+                  == names, f"(at) wavelet2D {band}")
+    launches = kernels.SWTA_DELTA.launches
+    check(launches == 0, f"(at) the tools launched K1 {launches} times")
+    pil = ("present" if have_pil
+           else "absent: wavelet2D and the 2D eval not run")
+    log(f"(at) tools, K1 launches {launches} (PIL {pil}): eval 3D "
+        f"{res_3d}; seconds " + json.dumps(seconds))
+    return {"tools": launches}, {"seconds": seconds, "pil": have_pil,
+                                 "eval_3d": res_3d}
+
+
+def phase_entry(card, items, data_root, run_3d, snap_a, device="0"):
+    """Phase 16: (ar), (at), then (as), whose sweeps are recorded beside
+    the other two; returns the launches by path and the ``entry_path``
+    record."""
+    t0 = time.perf_counter()
+    pending = start_sweep_records()
+    try:
+        l_ar, rec_ar = phase_raddino_map(card)
+        l_at, rec_at = phase_tools(items, data_root, run_3d, snap_a)
+        l_as, rec_as = phase_sweep_lines(items, pending, device)
+    finally:
+        if pending["cli"].poll() is None:
+            pending["cli"].kill()
+        pending["cli"].wait()
+    return ({"raddino_map": l_ar, **l_as, **l_at},
+            {"ar": rec_ar, "as": rec_as, "at": rec_at,
+             "seconds": time.perf_counter() - t0})
+
+
 def profile_summary(profiled):
     return {k: {"device_ms": v["device_ms"], "busy_share": v["busy_share"],
                 "groups_ms": v["groups_ms"], "top_ms": v["top_ms"][:3]}
@@ -4487,6 +4976,9 @@ def main():
 
     device = resolve_device("0")          # TF32 off for cuDNN and matmul
     torch.manual_seed(0)
+    # the RAD-DINO loader asks transformers for microsoft/rad-dino: offline
+    # (set before transformers is imported), it falls back at once
+    os.environ["HF_HUB_OFFLINE"] = "1"
     cards = sys.argv[1:] == ["--dp-cards"]
 
     t0 = time.perf_counter()
@@ -4599,6 +5091,13 @@ def main():
     log("spatial_path " + json.dumps(record_15))
     lap(15)
 
+    l_16, record_16 = phase_entry(
+        device, items, data_root, record_3d["run"],
+        os.path.join(run_a, "checkpoints", "last.ckpt"))
+    launches.update(l_16)
+    log("entry_path " + json.dumps(record_16))
+    lap(16)
+
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -4615,7 +5114,7 @@ def main():
             "superpix_pretrain", "superdiff_pretrain", "em_vae",
             "em_superpix", "test_em_vae", "test_em_superpix",
             "pretrain_3d", "sup_3d", "test_3d", *l_8, *l_9, *l_10,
-            *l_11, *l_12, *l_13, *l_14, *l_15)},
+            *l_11, *l_12, *l_13, *l_14, *l_15, *l_16)},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],

@@ -24,6 +24,10 @@ Same layout as ``hebbax`` so each module's counterpart is easy to find:
   utils/    seeding, run dirs, logging sinks, PNG writer, HBAXCKP1
             snapshots, the replay of a recomputed region, step timing
   cli/      ``python -m hebbax_torch.cli.<name>`` entry points
+  tools/    the repo's ``tools/`` scripts (evaluation, SDFs, reports,
+            filter grids, wavelets, Atrial pre/post-processing)
+  entry.py  the 29 root entry points (``python -m hebbax_torch.entry``)
+  sweep.py  runs a ``reproduce_*.sh`` sweep through them
   bridge.py parameter map between a flax variable tree and a state_dict
 
 The port imports torch, numpy and scipy only: no jax, flax, optax and

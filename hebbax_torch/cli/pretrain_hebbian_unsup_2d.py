@@ -85,9 +85,12 @@ def build(args, loaders=None):
         device=device, hebb_meta=hebb_meta, palette=cfg["PALETTE"])
 
 
+def build_parser():
+    return add_args(common.base_parser_2d())
+
+
 def main(argv=None, loaders=None):
-    parser = add_args(common.base_parser_2d())
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     return common.train(build, args, loaders)
 
 

@@ -205,9 +205,12 @@ def build(args, kind, loaders=None):
     return trainer
 
 
+def build_parser(kind):
+    return add_args(common.base_parser_2d(), kind)
+
+
 def main(kind, argv=None, loaders=None):
-    parser = add_args(common.base_parser_2d(), kind)
-    args = parser.parse_args(argv)
+    args = build_parser(kind).parse_args(argv)
     return common.train(build, args, kind, loaders)
 
 

@@ -173,9 +173,12 @@ def build(args, algo, loaders=None):
         args)
 
 
+def build_parser(algo):
+    return add_args(common.base_parser_2d(), algo)
+
+
 def main(algo, argv=None, loaders=None):
-    parser = add_args(common.base_parser_2d(), algo)
-    args = parser.parse_args(argv)
+    args = build_parser(algo).parse_args(argv)
     return common.train(build, args, algo, loaders)
 
 

@@ -75,9 +75,12 @@ def build(args, algo, loaders=None):
     return trainer
 
 
+def build_parser(algo):
+    return add_args(common3d.base_parser_3d(), algo)
+
+
 def main(algo, argv=None, loaders=None):
-    parser = add_args(common3d.base_parser_3d(), algo)
-    args = parser.parse_args(argv)
+    args = build_parser(algo).parse_args(argv)
     return common.train(build, args, algo, loaders)
 
 

@@ -160,9 +160,12 @@ def build(args, loaders=None, image_size=IMAGE_SIZE, encoder_kw=None):
     return trainer
 
 
+def build_parser():
+    return add_args(common.base_parser_2d())
+
+
 def main(argv=None, loaders=None):
-    parser = add_args(common.base_parser_2d())
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     return common.train(build, args, loaders)
 
 

@@ -16,9 +16,12 @@ from .common import base_parser_2d
 from .train_sup_2d import add_args, build
 
 
+def build_parser():
+    return add_args(base_parser_2d({"network": "snn_vgg"}))
+
+
 def main(argv=None, loaders=None):
-    parser = add_args(base_parser_2d({"network": "snn_vgg"}))
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     return common.train(build, args, loaders)
 
 

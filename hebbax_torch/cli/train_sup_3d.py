@@ -80,9 +80,12 @@ def build(args, loaders=None):
     return trainer
 
 
+def build_parser():
+    return add_args(common3d.base_parser_3d())
+
+
 def main(argv=None, loaders=None):
-    parser = add_args(common3d.base_parser_3d())
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     return common.train(build, args, loaders)
 
 

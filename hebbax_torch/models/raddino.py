@@ -7,8 +7,10 @@
 * :class:`RadDinoDecoder`: ConvT(768->256, k3, s1) ReLU BN ->
   ConvT(256->128, k3, s2) ReLU BN -> ConvT(128->64, k7, s3) ReLU BN ->
   nearest resize to out_size-2 -> ConvT(64->C, k3, s1), all VALID.
-* :func:`load_hf_rad_dino_params`: the ``microsoft/rad-dino`` weights are
-  not in the repository, so the encoder keeps its random init.
+* :func:`load_hf_rad_dino_params` / :func:`apply_hf_state_dict`: the HF
+  ``microsoft/rad-dino`` weights mapped onto :class:`ViTEncoder`, as
+  hebbax's; without transformers or the weights (offline) the encoder
+  keeps its random init.
 
 flax's numerics, kept here: LayerNorm eps 1e-6; ``nn.gelu`` is the tanh
 approximation; attention is ``MultiHeadDotProductAttention``, whose
@@ -24,6 +26,7 @@ flax's ``nn.ConvTranspose`` (``transpose_kernel=False``) is torch's
 flips the kernel when it crosses (its ``flax_flipped`` marks it).
 """
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -194,7 +197,73 @@ OFFLINE_WARNING = (
     "comparable to the reference's pretrained-encoder results")
 
 
-def load_hf_rad_dino_params(encoder):
-    """The HF ``microsoft/rad-dino`` weights are not in the repository, so
-    ``encoder`` keeps its random init: returns ``(encoder, False)``."""
-    return encoder, False
+def load_hf_rad_dino_params(encoder, repo="microsoft/rad-dino"):
+    """Copy the HF ``repo`` weights into ``encoder`` (hebbax's
+    ``load_hf_rad_dino_params``): ``(encoder, True)``, or ``(encoder,
+    False)`` with the encoder unchanged when transformers or the weights
+    are unavailable, or when they do not fit the encoder."""
+    try:
+        from transformers import AutoModel
+
+        hf = AutoModel.from_pretrained(repo)
+    except Exception:
+        return encoder, False
+
+    sd = {k: v.detach().cpu().numpy() for k, v in hf.state_dict().items()}
+    try:
+        return apply_hf_state_dict(encoder, sd), True
+    except AssertionError as e:
+        # e.g. a scaled-down encoder (dim != 768) on a machine that does
+        # have the checkpoint cached: fall back as offline
+        print(f"# rad-dino checkpoint incompatible with this encoder "
+              f"config ({e}); keeping random init")
+        return encoder, False
+
+
+def apply_hf_state_dict(encoder, sd):
+    """Map an HF dinov2 ViT-B state dict (name -> numpy array, torch
+    layouts) onto ``encoder`` in place, under ``no_grad`` and on its
+    device, key for key as hebbax's ``apply_hf_state_dict``: the conv and
+    ``nn.Linear`` weights are torch's already, the attention projections
+    split into 12 heads of 64.  DINOv2's ``mask_token`` and LayerScale
+    ``lambda1`` are not mapped (these blocks have none).  Every shape is
+    checked before anything is written: on an ``AssertionError`` the
+    encoder is unchanged."""
+    params = dict(encoder.named_parameters())
+    writes = []
+
+    def put(dst, value):
+        value = np.asarray(value)
+        assert tuple(params[dst].shape) == value.shape, tuple(
+            dst.split("."))
+        writes.append((params[dst], value))
+
+    emb = "embeddings."
+    put("patch_embed.weight", sd[emb + "patch_embeddings.projection.weight"])
+    put("patch_embed.bias", sd[emb + "patch_embeddings.projection.bias"])
+    put("cls_token", sd[emb + "cls_token"])
+    put("pos_embed", sd[emb + "position_embeddings"])
+    for i in range(encoder.depth):
+        b = f"encoder.layer.{i}."
+        blk = f"block{i}."
+        for norm in ("norm1", "norm2"):
+            put(blk + norm + ".weight", sd[b + norm + ".weight"])
+            put(blk + norm + ".bias", sd[b + norm + ".bias"])
+        for name in ("query", "key", "value"):
+            hf_name = b + "attention.attention." + name
+            put(blk + f"attn.{name}.weight",
+                sd[hf_name + ".weight"].reshape(12, 64, 768))
+            put(blk + f"attn.{name}.bias",
+                sd[hf_name + ".bias"].reshape(12, 64))
+        put(blk + "attn.out.weight",
+            sd[b + "attention.output.dense.weight"].reshape(768, 12, 64))
+        put(blk + "attn.out.bias", sd[b + "attention.output.dense.bias"])
+        for fc in ("fc1", "fc2"):
+            put(blk + fc + ".weight", sd[b + f"mlp.{fc}.weight"])
+            put(blk + fc + ".bias", sd[b + f"mlp.{fc}.bias"])
+    put("norm.weight", sd["layernorm.weight"])
+    put("norm.bias", sd["layernorm.bias"])
+    with torch.no_grad():
+        for param, value in writes:
+            param.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+    return encoder

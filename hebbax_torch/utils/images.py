@@ -1,7 +1,7 @@
 """Prediction image dumps (``hebbax/utils/images.py``): binary predictions
-thresholded at the selected threshold, saved as paletted PNGs.  The PNG
-is written here with zlib and struct, so the port needs no PIL to save
-predictions."""
+thresholded at the selected threshold, saved as paletted PNGs.  PNGs
+(paletted, grey or RGB) are written here with zlib and struct, so the
+port needs no PIL to save an image."""
 
 import os
 import struct
@@ -34,6 +34,31 @@ def encode_paletted_png(pred, palette):
     return (_PNG_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"PLTE", pal)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
             + _chunk(b"IEND", b""))
+
+
+def encode_png(img):
+    """PNG bytes of a (H, W) grey or (H, W, 3) RGB uint8 image (colour
+    type 0 or 2, bit depth 8), as PIL saves ``Image.fromarray(img)``."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 3 and img.shape[-1] == 3:
+        colour = 2
+    elif img.ndim == 2:
+        colour = 0
+    else:
+        raise ValueError(f"expected (H, W) or (H, W, 3), got {img.shape}")
+    h, w = img.shape[:2]
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0)
+    # filter type 0 (None) before every scanline
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          img.reshape(h, -1)], axis=1)
+    return (_PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
+def save_png(img, path):
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
 
 
 def save_pred_png(pred, path, palette):

@@ -54,6 +54,11 @@ from hebbax_torch.utils.checkpoint import load_train_state, save_train_state
 
 torch.set_num_threads(2)
 
+# The port's RAD-DINO trainer and tester ask transformers for
+# microsoft/rad-dino.  Set before transformers is imported, here or in
+# the ranks a test spawns, this makes the answer offline at once.
+os.environ["HF_HUB_OFFLINE"] = "1"
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

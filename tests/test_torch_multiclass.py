@@ -50,6 +50,11 @@ import torch_remat_cases as cases
 
 torch.set_num_threads(2)
 
+# The port's RAD-DINO trainer and tester ask transformers for
+# microsoft/rad-dino.  Set before transformers is imported, here or in
+# the ranks a test spawns, this makes the answer offline at once.
+os.environ["HF_HUB_OFFLINE"] = "1"
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_CLS = 3
 

@@ -49,6 +49,11 @@ from test_torch_unet2d import to_nchw, to_nhwc
 
 torch.set_num_threads(2)
 
+# The port's RAD-DINO trainer and tester ask transformers for
+# microsoft/rad-dino.  Set before transformers is imported, here or in
+# the ranks a test spawns, this makes the answer offline at once.
+os.environ["HF_HUB_OFFLINE"] = "1"
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIM, DEPTH, SIZE = 48, 2, 28
 SMALL = dict(dim=DIM, depth=DEPTH)
