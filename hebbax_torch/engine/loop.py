@@ -29,6 +29,7 @@ from ..bridge import kernel_layout
 from ..ops.metrics import make_accumulator
 from ..parallel import active, gather_rows, is_main, shard_global_batch
 from ..utils import images as image_utils
+from ..utils import trace
 from ..utils.checkpoint import (load_train_state, save_snapshot,
                                 save_train_state)
 from ..utils.logging import (BoxPrinter, MetricsLog, NullWriter,
@@ -112,18 +113,19 @@ class SupTrainer:
         """Host batch -> this rank's device batch (module docstring);
         under data parallelism it carries the ``weight`` vector and
         records the valid rows of the global and of this rank's batch."""
-        batch = dict(batch)
-        batch.pop("id", None)
-        if self.host_prep is not None:
-            batch = self.host_prep(batch)
-        if not active():
-            return self.to_device(batch)
-        batch, self._n_valid_global, self._n_valid = shard_global_batch(
-            batch)
-        weight = batch.pop("weight")
-        out = self.to_device(batch)
-        out["weight"] = torch.from_numpy(weight).to(self.device)
-        return out
+        with trace.span("hx.prep"):
+            batch = dict(batch)
+            batch.pop("id", None)
+            if self.host_prep is not None:
+                batch = self.host_prep(batch)
+            if not active():
+                return self.to_device(batch)
+            batch, self._n_valid_global, self._n_valid = shard_global_batch(
+                batch)
+            weight = batch.pop("weight")
+            out = self.to_device(batch)
+            out["weight"] = torch.from_numpy(weight).to(self.device)
+            return out
 
     def _valid(self, x):
         """The rows of ``x`` (this rank's batch) that are not padding."""
@@ -142,25 +144,32 @@ class SupTrainer:
                       **self.hebb_meta)
 
     def train_epoch(self, epoch, collect_metrics):
-        acc = make_accumulator(self.num_classes) if collect_metrics else None
-        # the losses accumulate on the device; one read at epoch end
-        total_loss, n_batches = 0.0, 0
-        aux_totals = {}
-        for batch in self.loaders[self.train_key]:
-            batch = self.prep(batch)
-            self.state, out = self.train_step(self.state, batch)
-            total_loss = total_loss + out["loss"]
-            # the pretrainers' scalar loss_unsup / loss_superdiff
-            for k, v in out.items():
-                if k != "loss" and k.startswith("loss") and v.dim() == 0:
-                    aux_totals[k] = aux_totals.get(k, 0.0) + v
-            n_batches += 1
-            if acc is not None:
-                acc.update(self._valid(out["logits"]),
-                           self._valid(batch["mask"]))
-        n = max(n_batches, 1)
-        self._aux_losses = {k: float(v) / n for k, v in aux_totals.items()}
-        return float(total_loss) / n, acc
+        with trace.span("hx.epoch"):
+            acc = (make_accumulator(self.num_classes) if collect_metrics
+                   else None)
+            # the losses accumulate on the device; one read at epoch end
+            total_loss, n_batches = 0.0, 0
+            aux_totals = {}
+            for batch in trace.iterate(self.loaders[self.train_key],
+                                       "hx.data.next"):
+                batch = self.prep(batch)
+                with trace.span("hx.step"):
+                    self.state, out = self.train_step(self.state, batch)
+                total_loss = total_loss + out["loss"]
+                # the pretrainers' scalar loss_unsup / loss_superdiff
+                for k, v in out.items():
+                    if k != "loss" and k.startswith("loss") and v.dim() == 0:
+                        aux_totals[k] = aux_totals.get(k, 0.0) + v
+                n_batches += 1
+                if acc is not None:
+                    with trace.span("hx.metrics"):
+                        acc.update(self._valid(out["logits"]),
+                                   self._valid(batch["mask"]))
+            n = max(n_batches, 1)
+            with trace.span("hx.epoch.read"):
+                self._aux_losses = {k: float(v) / n
+                                    for k, v in aux_totals.items()}
+                return float(total_loss) / n, acc
 
     def validate(self, epoch):
         acc = make_accumulator(self.num_classes)
@@ -201,16 +210,23 @@ class SupTrainer:
 
     def _profiled_epoch(self, epoch, display):
         """One train epoch under ``torch.profiler`` (CUDA activity when the
-        run is on the card), its trace exported into ``--profile_dir``."""
+        run is on the card) with the program's spans on
+        (:mod:`..utils.trace`), its trace exported into
+        ``--profile_dir``."""
         from torch.profiler import ProfilerActivity, profile
 
+        cuda = torch.device(self.device).type == "cuda"
         activities = [ProfilerActivity.CPU]
-        if torch.device(self.device).type == "cuda":
+        if cuda:
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
-            out = self.train_epoch(epoch, display)
-            if torch.device(self.device).type == "cuda":
-                torch.cuda.synchronize(self.device)
+            trace.enable(cuda)
+            try:
+                out = self.train_epoch(epoch, display)
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+            finally:
+                trace.disable()
         if is_main():
             os.makedirs(self.args.profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(

@@ -31,9 +31,10 @@ from ..ops.ema import update_ema
 from ..ops.losses import entropy_loss, softmax_mse_loss, weighted_mean
 from ..ops.metrics import make_accumulator
 from ..parallel import average_grads, draw_rows, gsum
+from ..utils import trace
 from ..utils.checkpoint import save_snapshot
 from .loop import SupTrainer
-from .steps import apply_grads
+from .steps import apply_grads, forward
 
 
 def _trainable(model):
@@ -66,8 +67,8 @@ def make_semi_step(model, network: str, criterion, unsup_fn: Callable,
 
     def step(state, sup_batch, unsup_batch, unsup_weight):
         model.train()
-        out_u = model(unsup_batch["image"])
-        out_s = model(sup_batch["image"])
+        out_u = forward(model, unsup_batch["image"])
+        out_s = forward(model, sup_batch["image"])
         # hebbax's weight is a float32 array: a bfloat16 objective is
         # promoted before it is scaled
         loss_u = unsup_fn(out_u, unsup_batch).float() * unsup_weight
@@ -229,9 +230,10 @@ def make_uamt_step(model, teacher, network: str, criterion,
             noise = uamt_noise(img_u, mc_T + 1, generator)
         teacher.train()
         with torch.no_grad():
-            t_logits = primary_logits(network, teacher(img_u + noise[0]))
+            t_logits = primary_logits(network,
+                                      forward(teacher, img_u + noise[0]))
             probs = [torch.softmax(primary_logits(
-                network, teacher(img_u + noise[1 + t])), dim=1)
+                network, forward(teacher, img_u + noise[1 + t])), dim=1)
                 for t in range(mc_T)]
             mean_probs = torch.mean(torch.stack(probs), dim=0)
             uncertainty = -torch.sum(
@@ -246,8 +248,9 @@ def make_uamt_step(model, teacher, network: str, criterion,
                     (-1,) + (1,) * (unc_mask.dim() - 1))
 
         model.train()
-        logits_u = primary_logits(network, model(img_u))
-        logits_s = primary_logits(network, model(sup_batch["image"]))
+        logits_u = primary_logits(network, forward(model, img_u))
+        logits_s = primary_logits(network,
+                                  forward(model, sup_batch["image"]))
         cons = softmax_mse_loss(logits_u, t_logits)
         loss_u = (gsum(torch.sum(unc_mask * cons))
                   / (2 * gsum(torch.sum(unc_mask)) + 1e-16)) * unsup_weight
@@ -275,8 +278,8 @@ def make_cps_step(model1, model2, network: str, criterion):
         model1.train()
         model2.train()
         img_u = unsup_batch["image"]
-        l1u = primary_logits(network, model1(img_u))
-        l2u = primary_logits(network, model2(img_u))
+        l1u = primary_logits(network, forward(model1, img_u))
+        l2u = primary_logits(network, forward(model2, img_u))
         pl1 = torch.argmax(l1u.detach(), dim=1)
         pl2 = torch.argmax(l2u.detach(), dim=1)
         w = unsup_batch.get("weight")
@@ -285,8 +288,8 @@ def make_cps_step(model1, model2, network: str, criterion):
             pl1 = torch.where(keep, pl1, -1)
             pl2 = torch.where(keep, pl2, -1)
         loss_u = (criterion(l1u, pl2) + criterion(l2u, pl1)) * unsup_weight
-        l1s = primary_logits(network, model1(sup_batch["image"]))
-        l2s = primary_logits(network, model2(sup_batch["image"]))
+        l1s = primary_logits(network, forward(model1, sup_batch["image"]))
+        l2s = primary_logits(network, forward(model2, sup_batch["image"]))
         loss_s = (criterion(l1s, sup_batch["mask"])
                   + criterion(l2s, sup_batch["mask"]))
         loss = loss_s + loss_u
@@ -331,29 +334,38 @@ class SemiTrainer(SupTrainer):
     def next_unsup(self):
         if self._unsup_gen is None:
             self._unsup_gen = self._unsup_iter()
-        return next(self._unsup_gen)
+        with trace.span("hx.data.next"):
+            return next(self._unsup_gen)
 
     def call_step(self, sup_b, unsup_b, w, epoch):
         return self.train_step(self.state, sup_b, unsup_b, w)
 
     def train_epoch(self, epoch, collect_metrics):
-        acc = make_accumulator(self.num_classes) if collect_metrics else None
-        totals = {"loss": 0.0, "loss_sup": 0.0, "loss_unsup": 0.0}
-        n = 0
-        w = self.epoch_weight(epoch)
-        for sup_batch in self.loaders[self.train_key]:
-            unsup_b = self.prep(self.next_unsup())
-            sup_b = self.prep(sup_batch)    # last: the valid rows are its
-            self.state, out = self.call_step(sup_b, unsup_b, w, epoch)
-            for k in totals:
-                totals[k] = totals[k] + out[k]    # device accumulation
-            n += 1
-            if acc is not None:
-                acc.update(self._valid(out["logits"]),
-                           self._valid(sup_b["mask"]))
-        n = max(n, 1)
-        self._epoch_losses = {k: float(v) / n for k, v in totals.items()}
-        return self._epoch_losses["loss"], acc
+        with trace.span("hx.epoch"):
+            acc = (make_accumulator(self.num_classes) if collect_metrics
+                   else None)
+            totals = {"loss": 0.0, "loss_sup": 0.0, "loss_unsup": 0.0}
+            n = 0
+            w = self.epoch_weight(epoch)
+            for sup_batch in trace.iterate(self.loaders[self.train_key],
+                                           "hx.data.next"):
+                unsup_b = self.prep(self.next_unsup())
+                sup_b = self.prep(sup_batch)  # last: the valid rows are its
+                with trace.span("hx.step"):
+                    self.state, out = self.call_step(sup_b, unsup_b, w,
+                                                     epoch)
+                for k in totals:
+                    totals[k] = totals[k] + out[k]    # device accumulation
+                n += 1
+                if acc is not None:
+                    with trace.span("hx.metrics"):
+                        acc.update(self._valid(out["logits"]),
+                                   self._valid(sup_b["mask"]))
+            n = max(n, 1)
+            with trace.span("hx.epoch.read"):
+                self._epoch_losses = {k: float(v) / n
+                                      for k, v in totals.items()}
+            return self._epoch_losses["loss"], acc
 
 
 class UAMTTrainer(SemiTrainer):

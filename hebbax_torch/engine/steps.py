@@ -31,6 +31,7 @@ from ..hebb.spec import is_excluded
 from ..hebb.surgery import merge_hebbian_grads, pop_deltas
 from ..models.registry import primary_logits
 from ..parallel import average_grads, sum_dict
+from ..utils import trace
 
 
 def _module_path(param_name):
@@ -46,21 +47,28 @@ def sup_loss_fn(criterion, network, outputs, mask, deep_supervision=False):
     return criterion(primary_logits(network, outputs), mask)
 
 
+def forward(model, x):
+    """``model(x)``, the step's forward, inside the ``hx.forward`` span."""
+    with trace.span("hx.forward"):
+        return model(x)
+
+
 def apply_grads(optimizer, schedule, count, grads):
     """One optimizer step at ``schedule(count)``: every parameter the
     optimizer holds gets its grad from ``grads`` ({param: grad}), a zero
     where none reached it."""
-    lr = schedule(count)
-    groups = optimizer.param_groups
-    for group in groups:
-        group["lr"] = lr
-        for p in group["params"]:
-            g = grads.get(p)
-            p.grad = torch.zeros_like(p) if g is None else g
-    optimizer.step()
-    for group in groups:
-        for p in group["params"]:
-            p.grad = None
+    with trace.span("hx.optimizer"):
+        lr = schedule(count)
+        groups = optimizer.param_groups
+        for group in groups:
+            group["lr"] = lr
+            for p in group["params"]:
+                g = grads.get(p)
+                p.grad = torch.zeros_like(p) if g is None else g
+        optimizer.step()
+        for group in groups:
+            for p in group["params"]:
+                p.grad = None
 
 
 def make_sup_train_step(model, network: str, criterion,
@@ -92,7 +100,7 @@ def make_sup_train_step(model, network: str, criterion,
     def step(state, batch):
         model.train()
         pop_deltas(model)
-        outputs = model(batch["image"])
+        outputs = forward(model, batch["image"])
         loss = sup_loss_fn(criterion, network, outputs, batch["mask"],
                            deep_supervision)
         deltas = pop_deltas(model)
@@ -153,7 +161,7 @@ def make_probe_pretrain_step(model, network: str, criterion, unsup_loss,
 
     def step(state, batch):
         model.train()
-        outputs = model(batch["image"])
+        outputs = forward(model, batch["image"])
         logits = primary_logits(network, outputs)
         probe = criterion(logits, batch["mask"])
         unsup = unsup_loss(outputs, batch)
@@ -171,7 +179,8 @@ def make_eval_step(model, network: str, criterion=None):
     def step(batch):
         model.eval()
         with torch.no_grad():
-            logits = primary_logits(network, model(batch["image"]))
+            logits = primary_logits(network,
+                                    forward(model, batch["image"]))
             out = {"logits": logits}
             if criterion is not None and "mask" in batch:
                 out["loss"] = criterion(logits, batch["mask"])

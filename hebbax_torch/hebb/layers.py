@@ -42,7 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel import world_size
-from ..utils import remat
+from ..utils import remat, trace
 from . import rules
 from .spec import HebbSpec, spec_if_active
 
@@ -351,14 +351,16 @@ class FoldedHConv3(HConv):
     def _apply_conv(self, x, w, bias):
         from ..ops import s2d3d
 
-        wf = self._permuted(s2d3d.fold_conv_kernel3(w, self.in_groups,
-                                                    self.fold))
+        with trace.span("hx.fold"):
+            wf = self._permuted(s2d3d.fold_conv_kernel3(w, self.in_groups,
+                                                        self.fold))
         return F.conv3d(x, wf, bias, padding=self.folded_pad)
 
     def _out_bias(self, b):
         from ..ops import s2d3d
 
-        return self._permuted(s2d3d.fold_bias3(b, self.fold))
+        with trace.span("hx.fold"):
+            return self._permuted(s2d3d.fold_bias3(b, self.fold))
 
     def _record_delta(self, spec, x, y):
         from ..ops import s2d3d
@@ -402,13 +404,15 @@ class FoldedHConvTranspose3(HConvTranspose):
     def _apply_conv(self, x, w, bias):
         from ..ops import s2d3d
 
-        wf, strides = s2d3d.fold_transpose_kernel3(w, self.fold)
+        with trace.span("hx.fold"):
+            wf, strides = s2d3d.fold_transpose_kernel3(w, self.fold)
         return F.conv_transpose3d(x, wf, bias, stride=strides)
 
     def _out_bias(self, b):
         from ..ops import s2d3d
 
-        return s2d3d.fold_bias3(b, self.fold)
+        with trace.span("hx.fold"):
+            return s2d3d.fold_bias3(b, self.fold)
 
     def _record_delta(self, spec, x, y):
         from ..ops import s2d3d
@@ -447,7 +451,8 @@ class FoldedDownHConv3(HConv):
     def _apply_conv(self, x, w, bias):
         from ..ops import s2d3d
 
-        wf, strides = s2d3d.fold_down_kernel3(w, self.fold)
+        with trace.span("hx.fold"):
+            wf, strides = s2d3d.fold_down_kernel3(w, self.fold)
         return F.conv3d(self._standard(x), wf, bias, stride=strides)
 
     def _record_delta(self, spec, x, y):

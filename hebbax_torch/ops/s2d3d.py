@@ -25,6 +25,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils import trace
+
 
 def prodf(f):
     fz, fy, fx = f
@@ -66,12 +68,14 @@ def unfold_nd(x, f):
 
 def fold3(x, f):
     """(N, C, D, H, W) -> (N, prod(f)·C, D/fz, H/fy, W/fx)."""
-    return fold_nd(x, f)
+    with trace.span("hx.fold"):
+        return fold_nd(x, f)
 
 
 def unfold3(x, f):
     """Inverse of :func:`fold3`."""
-    return unfold_nd(x, f)
+    with trace.span("hx.fold"):
+        return unfold_nd(x, f)
 
 
 def folded_k(k: int, f: int) -> int:
@@ -305,22 +309,24 @@ def regroup3(x, groups, f):
     pf = prodf(f)
     n, sp = x.shape[0], tuple(x.shape[2:])
     parts, off = [], 0
-    for g in groups:
-        parts.append(x[:, off:off + pf * g].reshape((n, pf, g) + sp))
-        off += pf * g
-    return torch.cat(parts, dim=2).reshape((n, pf * sum(groups)) + sp)
+    with trace.span("hx.fold"):
+        for g in groups:
+            parts.append(x[:, off:off + pf * g].reshape((n, pf, g) + sp))
+            off += pf * g
+        return torch.cat(parts, dim=2).reshape((n, pf * sum(groups)) + sp)
 
 
 def ungroup3(x, groups, f):
     """Inverse of :func:`regroup3`: standard folded order -> grouped."""
     pf = prodf(f)
     n, sp = x.shape[0], tuple(x.shape[2:])
-    xg = x.reshape((n, pf, sum(groups)) + sp)
     parts, off = [], 0
-    for g in groups:
-        parts.append(xg[:, :, off:off + g].reshape((n, pf * g) + sp))
-        off += g
-    return torch.cat(parts, dim=1)
+    with trace.span("hx.fold"):
+        xg = x.reshape((n, pf, sum(groups)) + sp)
+        for g in groups:
+            parts.append(xg[:, :, off:off + g].reshape((n, pf * g) + sp))
+            off += g
+        return torch.cat(parts, dim=1)
 
 
 def _window_view(x, f):
@@ -381,7 +387,8 @@ def subpixel_max3(x, f):
     over adjacent pairs.  Its gradient goes to the first maximum of each
     window (:class:`_SubpixelMax3`), as the unfolded network's pool's
     does: post-ReLU zero ties are common."""
-    return _SubpixelMax3.apply(x, tuple(int(a) for a in f))
+    with trace.span("hx.fold"):
+        return _SubpixelMax3.apply(x, tuple(int(a) for a in f))
 
 
 __all__ = ["fold3", "unfold3", "folded_k", "fold_conv_kernel3",

@@ -28,6 +28,7 @@ ranks), while ``--dp_devices`` above the visible cards raises.
 import csv
 import importlib.util
 import itertools
+import json
 import math
 import os
 
@@ -50,6 +51,7 @@ from hebbax_torch.hebb.layers import INIT_GAIN, HConv, HConvTranspose
 from hebbax_torch.models import get_network
 from hebbax_torch.ops import augment_device as taug
 from hebbax_torch.ops import losses as tlosses
+from hebbax_torch.utils import trace
 from hebbax_torch.utils.checkpoint import load_train_state, save_train_state
 
 torch.set_num_threads(2)
@@ -287,6 +289,16 @@ def test_profile_dir_writes_a_trace(synth3d, tmp_path):
     files = os.listdir(prof)
     assert files and all(os.path.getsize(prof / f) > 0 for f in files)
     assert any(f.endswith(".json") for f in files)
+    # the traced epoch carries the program's own spans, and tracing is
+    # off again after it
+    names = set()
+    for f in files:
+        if f.endswith(".json"):
+            with open(prof / f) as fh:
+                names |= {e.get("name") for e in json.load(fh)[
+                    "traceEvents"]}
+    assert {"hx.epoch", "hx.step", "hx.forward", "hx.optimizer"} <= names
+    assert not trace.enabled()
 
 
 # -- device augmentation 
