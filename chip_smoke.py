@@ -18,7 +18,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    only), beside three bounds: bytes over 3.35 TB/s, the FLOPs over the
    float32 SIMT peak (67 TFLOP/s), and three times the FLOPs over the
    TF32 tensor-core peak (495 TFLOP/s).  The kernel's bound is the larger
-   of bytes and tensor-core time: the arithmetic it really does;
+   of bytes and tensor-core time: the arithmetic it really does.  Then
+   the folded 3D max pool's backward kernel (P1) at the shapes the
+   networks give it (``unet3d_s2d``'s folded level at 96x96x80, x
+   1x128x48x96x80 at f = (2, 1, 1), in float32 and bfloat16, and
+   ``unet3d_urpc_s2d``'s two levels at (2, 2, 2)): its gradient equal to
+   the bit to its plain version ``s2d3d.first_max_grad``, and the kernel,
+   the plain version and the bytes bound (x and g read once, the
+   gradient written once, over 3.35 TB/s) timed likewise;
 3. on a small input (batch 2, 32x32), a training forward on the card
    (kernel) against the same weights on the CPU (plain version): logits
    and all 22 deltas;
@@ -230,7 +237,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    launches; K1 within TOL of its plain version at
    the sites it saw), its deltas and BN running statistics, one
    fine-tune step's gradients; (al) each 3D ``_s2d`` name likewise at
-   batch 1, 96x96x80 (no K1 launch) with both peaks; (am) steady step
+   batch 1, 96x96x80 (no K1 launch) with both peaks and the folded
+   step's P1 launches (its folded pools), ``unet3d_urpc_s2d``'s
+   gradients compared in float64 on the CPU (P1 takes float32 and
+   bfloat16); (am) steady step
    (``measure_step``), device busy share and peak memory of
    ``train_sup_2d`` on ``unet_s2d`` / ``unet``, EM on ``unet3d_s2d`` /
    ``unet3d``, URPC on ``unet3d_urpc_s2d`` / ``unet3d_urpc`` and
@@ -271,9 +281,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    finite and in range, ``mask2sdf`` and ``atrial.postprocess`` equal to
    the bit to phase 7's ``mask_sdf1`` maps and (m)'s post-processing; K1
    0 launches in (ar) and (at); one ``entry_path`` line carries them;
-17. print the ``{"kernels": [...]}`` line (with ``launches_by_path``: a,
-   urpc_pretrain, cct_pretrain and the paths of 6 to 16), the card's
-   name and power limit, and last ``{"ok": true, "device": {...}}``.
+17. print the ``{"kernels": [...]}`` line (K1 with ``launches_by_path``:
+   a, urpc_pretrain, cct_pretrain and the paths of 6 to 16; P1 with its
+   launches on (p), (t) and (al), where each run's count is a positive
+   multiple of its steps on a network that pools folded and 0
+   otherwise, and each (al) fine-tune step's count is the network's
+   number of folded pools), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX or of the ``hebbax`` package,
 and writes only under ``build/`` beside this file.
@@ -522,6 +536,68 @@ def phase_sites(device, images):
             f"{b['ms'] / k_ms:6.1%}")
     log("sites " + json.dumps(rows))
     return rows
+
+
+# P1's cases: (label, unfolded x shape, fold, dtype)
+POOL_CASES = (
+    ("unet3d_s2d level 0", (1, 64, 96, 96, 80), (2, 1, 1), "float32"),
+    ("unet3d_s2d level 0", (1, 64, 96, 96, 80), (2, 1, 1), "bfloat16"),
+    ("unet3d_urpc_s2d conv1", (1, 16, 96, 96, 80), (2, 2, 2), "float32"),
+    ("unet3d_urpc_s2d conv2", (1, 32, 48, 48, 40), (2, 2, 2), "float32"))
+
+
+def phase_pool_kernel(device):
+    """P1 against its plain version on post-ReLU card tensors at
+    POOL_CASES: bit-equal gradients, one launch a call, and the kernel,
+    the plain version and the bytes bound timed."""
+    import torch
+    from hebbax_torch.ops import s2d3d
+    from hebbax_torch.ops.s2d3d_kernels import SUBPIXEL_MAX3
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = []
+    for label, shape, f, dt in POOL_CASES:
+        dtype = getattr(torch, dt)
+        x = s2d3d.fold3(torch.relu(torch.randn(
+            shape, generator=gen, device=device)), f).to(dtype)
+        n, c, d, h, w = shape
+        g = torch.randn((n, c, d // 2, h // 2, w // 2), generator=gen,
+                        device=device).to(dtype)
+        before = SUBPIXEL_MAX3.launches
+        got = SUBPIXEL_MAX3(x, g, f)
+        check(SUBPIXEL_MAX3.launches == before + 1,
+              f"P1 {label} {dt}: one call counted "
+              f"{SUBPIXEL_MAX3.launches - before} launches")
+        check(torch.equal(got, s2d3d.first_max_grad(x, g, f)),
+              f"P1 {label} {dt}: the gradient differs from the plain "
+              f"version's")
+        del got
+        k_ms = cuda_time_ms(lambda: SUBPIXEL_MAX3(x, g, f))
+        p_ms = cuda_time_ms(lambda: s2d3d.first_max_grad(x, g, f))
+        nbytes = (2 * x.numel() + g.numel()) * x.element_size()
+        b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        rows.append(dict(case=label, x=list(x.shape), fold=list(f),
+                         dtype=dt, bytes=nbytes, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, equal_to_plain=True))
+        log(f"P1 {label} {dt} x {tuple(x.shape)} f {f}: kernel {k_ms:.4f} "
+            f"ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_ms / k_ms:.1%}), bit-equal")
+        del x, g
+        torch.cuda.empty_cache()
+    log("pool_kernel " + json.dumps(rows))
+    return rows
+
+
+def p1_gate(tag, net, launches, steps, on):
+    """P1's launches over a run of ``steps`` train steps of ``net``: a
+    positive multiple of the steps on the card where the network pools
+    folded (S2D_P1), none otherwise."""
+    if on == "cuda" and S2D_P1.get(net, 0):
+        ok = launches > 0 and launches % steps == 0
+    else:
+        ok = launches == 0
+    check(ok, f"{tag} {net}: P1 launched {launches} times in {steps} "
+              f"steps")
 
 
 def phase_small_reference(device):
@@ -1704,6 +1780,7 @@ def phase_semi_3d_train(data_root, snaps, device="0", runs=SEMI_3D,
     import torch
     from hebbax_torch.cli import common3d, train_semi_3d
     from hebbax_torch.hebb import kernels
+    from hebbax_torch.ops.s2d3d_kernels import SUBPIXEL_MAX3
 
     on = "cpu" if device == "cpu" else "cuda"
     out = {k: {} for k in ("launches", "steps", "step_ms", "steady",
@@ -1735,10 +1812,13 @@ def phase_semi_3d_train(data_root, snaps, device="0", runs=SEMI_3D,
         raw_step = trainer.train_step
         trainer.train_step = timed_step(raw_step, times)
         kernels.SWTA_DELTA.launches = 0
+        SUBPIXEL_MAX3.launches = 0
         trainer.run()
         launches = kernels.SWTA_DELTA.launches
+        p1 = P1_LAUNCHES[f"{algo}{suffix}"] = SUBPIXEL_MAX3.launches
         out["launches"][f"{algo}{suffix}"] = launches
         check(launches == 0, f"({tag}) {algo} launched K1 {launches} times")
+        p1_gate(f"({tag}) {algo}", net, p1, len(times), on)
         check(all(all_on(m, on) for m in models),
               f"({tag}) {algo}: a model tensor is off {on}")
         losses, ok = finite_losses(trainer)
@@ -1758,7 +1838,7 @@ def phase_semi_3d_train(data_root, snaps, device="0", runs=SEMI_3D,
                   f"({tag}) {algo}: model 2 equals model 1")
         out["steps"][algo], out["step_ms"][algo] = len(times), times
         log(f"({tag}) {algo} on {net}: {len(times)} steps, K1 launches "
-            f"{launches}, step ms {[round(t, 3) for t in times]}, losses "
+            f"{launches}, P1 launches {p1}, step ms {[round(t, 3) for t in times]}, losses "
             f"{losses}")
         out["steady"][algo] = times[1:]
         out["profile"][algo] = profile_steps(
@@ -1942,13 +2022,15 @@ def phase_tail_reference(device):
     return out
 
 
-def run_path(trainer, tag, on, watch=()):
-    """Run ``trainer`` with its K1 launch count zeroed just before and read
-    just after: no launch, finite losses, best_JI.ckpt and last.ckpt, the
-    ``watch`` parameters moved; then 10 steady and 3 profiled steps, and
-    the peak memory of the run and its timed steps."""
+def run_path(trainer, tag, on, watch=(), net=None):
+    """Run ``trainer`` with its K1 and P1 launch counts zeroed just before
+    and read just after: no K1 launch (and P1's count gated by p1_gate
+    where ``net`` is given), finite losses, best_JI.ckpt and last.ckpt,
+    the ``watch`` parameters moved; then 10 steady and 3 profiled steps,
+    and the peak memory of the run and its timed steps."""
     import torch
     from hebbax_torch.hebb import kernels
+    from hebbax_torch.ops.s2d3d_kernels import SUBPIXEL_MAX3
 
     model = trainer.state.model
     sd0 = model.state_dict()
@@ -1957,9 +2039,13 @@ def run_path(trainer, tag, on, watch=()):
     raw_step = trainer.train_step
     trainer.train_step = timed_step(raw_step, times)
     kernels.SWTA_DELTA.launches = 0
+    SUBPIXEL_MAX3.launches = 0
     trainer.run()
     launches = kernels.SWTA_DELTA.launches
+    p1 = SUBPIXEL_MAX3.launches
     check(launches == 0, f"{tag} launched K1 {launches} times")
+    if net is not None:
+        p1_gate(tag, net, p1, len(times), on)
     check(all_on(model, on), f"{tag}: a model tensor is off {on}")
     losses, ok = finite_losses(trainer)
     check(ok, f"{tag} losses {losses}")
@@ -1969,8 +2055,8 @@ def run_path(trainer, tag, on, watch=()):
     sd = model.state_dict()
     still = [n for n in watch if torch.equal(sd[n], w0[n])]
     check(not still, f"{tag}: {still[:5]} ({len(still)}) did not move")
-    log(f"{tag}: {len(times)} steps, K1 launches {launches}, step ms "
-        f"{[round(t, 3) for t in times]}, losses {losses}")
+    log(f"{tag}: {len(times)} steps, K1 launches {launches}, P1 launches "
+        f"{p1}, step ms {[round(t, 3) for t in times]}, losses {losses}")
     steady = steady_step_ms(trainer, raw_step)
     profiled = profile_steps(trainer, raw_step, float(np.median(steady)))
     log(f"{tag} profile " + json.dumps(profiled))
@@ -1979,7 +2065,8 @@ def run_path(trainer, tag, on, watch=()):
     if peak is not None:
         log(f"{tag} peak memory {peak:.3f} GiB (torch.cuda."
             f"max_memory_allocated, the run and its timed steps)")
-    return {"launches": launches, "steps": len(times), "step_ms": times,
+    return {"launches": launches, "p1_launches": p1, "steps": len(times),
+            "step_ms": times,
             "steady": steady, "profile": profiled, "peak_gib": peak,
             "run": trainer.paths.run}
 
@@ -2082,7 +2169,9 @@ def phase_em_3d(data_root, snaps, device="0"):
         check(not differ, f"(t) {key}: the model differs from the "
                           f"snapshot: {differ[:5]}")
         out[key] = run_path(trainer, f"(t) {key}", on,
-                            watch=("encoder.encoder1.conv1.weight",))
+                            watch=("encoder.encoder1.conv1.weight",),
+                            net="unet3d_s2d")
+        P1_LAUNCHES[key] = out[key]["p1_launches"]
         del trainer
         release()
         out[f"test_{key}"], tests[key] = phase_3d_test(
@@ -3832,6 +3921,13 @@ S2D_HEADS = {"unet": ("out_conv",), "unet_urpc": DEEP4["unet_urpc"][0],
              "vnet_cct": ("main_decoder.out_tr.conv2",)}
 S2D_K1 = {"unet_s2d": 22, "unet_urpc_s2d": 22, "unet_cct_s2d": 58,
           "unet_cct_s2d_batched": 22, "unet_s2d_head2": 22}
+# P1 launches of one fine-tune forward and backward: the network's folded
+# 3D pools (every other network: none)
+S2D_P1 = {"unet3d_s2d": 1, "unet3d_dtc_s2d": 1, "unet3d_cct_s2d": 1,
+          "unet3d_cct_s2d_rc": 1, "unet3d_cct_s2d_batched": 1,
+          "unet3d_cct_s2d_batched_rc": 1, "unet3d_urpc_s2d": 2}
+# P1 launches by path, filled by (p), (t) and (al)
+P1_LAUNCHES = {}
 S2D_OUT_TOL = 1e-4      # folded vs twin outputs, of max(1, max|output|)
 S2D_DELTA_TOL = 1e-3    # folded vs twin deltas, of max|delta|
 S2D_GRAD_TOL = 1e-3     # folded vs twin gradients, of the largest |grad|
@@ -3980,11 +4076,12 @@ def s2d_twin_check(name, card, x, nd, tag):
     """Eval outputs, one Hebbian training forward (K1 launches, deltas,
     BN running statistics) and one fine-tune step's gradients of the
     folded network of ``name`` against its unfolded twin; the folded
-    step's peak memory beside the twin's.  Returns (K1 launches of the
-    folded Hebbian forward, the record)."""
+    step's peak memory and P1 launches beside the twin's peak.  Returns
+    (K1 launches of the folded Hebbian forward, the record)."""
     import torch
     from hebbax_torch.hebb import kernels
     from hebbax_torch.hebb.surgery import pop_deltas
+    from hebbax_torch.ops.s2d3d_kernels import SUBPIXEL_MAX3
 
     on = torch.device(card).type
     a, b = s2d_pair(name, card, nd)
@@ -4023,19 +4120,37 @@ def s2d_twin_check(name, card, x, nd, tag):
               f"{tag} {name}: K1 vs its plain version "
               f"{rec['k1_vs_plain_rel_err']} at the folded sites")
     del sites, out_a, out_b
-    peaks = {}
-    grads = {}
-    # URPC's float32 gradients are ill-conditioned (hebbax's own folded
-    # and unfolded URPC differ by 2.8e-3 of the largest in float32, and
-    # hebbax holds them in float64): its step is compared in float64
-    f64 = name in S2D_GRADS_F64
-    rec["grad_dtype"] = "float64" if f64 else "float32"
+    peaks, grads, p1 = {}, {}, {}
     for key, m in (("folded", a), ("twin", b)):
         release()
         reset_peak(on)
-        grads[key] = {k: v.detach() for k, v in _finetune_grads(
-            m.double() if f64 else m, x.double() if f64 else x).items()}
+        SUBPIXEL_MAX3.launches = 0
+        grads[key] = {k: v.detach() for k, v in _finetune_grads(m,
+                                                                x).items()}
+        torch.cuda.synchronize()
+        p1[key] = SUBPIXEL_MAX3.launches
         peaks[key] = peak_gib(on)
+    want = S2D_P1.get(name, 0) if on == "cuda" else 0
+    check(p1 == {"folded": want, "twin": 0},
+          f"{tag} {name}: P1 launches {p1} in the fine-tune steps, "
+          f"expected {want} (folded) and 0 (twin)")
+    rec["p1_launches"] = p1["folded"]
+    # URPC's float32 gradients are ill-conditioned (hebbax's own folded
+    # and unfolded URPC differ by 2.8e-3 of the largest in float32, and
+    # hebbax holds them in float64): its step is compared in float64, on
+    # the CPU, since the folded pool takes float32 and bfloat16 alone on
+    # the card (P1); the pair is made anew there from the same seeds
+    f64 = name in S2D_GRADS_F64
+    rec["grad_dtype"] = "float64" if f64 else "float32"
+    rec["grad_device"] = "cpu" if f64 else on
+    if f64:
+        del grads
+        release()
+        a64, b64 = (m.double() for m in s2d_pair(name, "cpu", nd))
+        x64 = x.cpu().double()
+        grads = {key: _finetune_grads(m, x64)
+                 for key, m in (("folded", a64), ("twin", b64))}
+        del a64, b64
     rec["grad_rel_err"] = _grads_rel(grads["folded"], grads["twin"])
     check(rec["grad_rel_err"] <= S2D_GRAD_TOL,
           f"{tag} {name}: fine-tune grads differ by {rec['grad_rel_err']} "
@@ -4046,7 +4161,8 @@ def s2d_twin_check(name, card, x, nd, tag):
         f"grads {rec['grad_rel_err']:.2e} (of scale), K1 {launches}"
         + (f" (vs plain {rec['k1_vs_plain_rel_err']:.2e})"
            if "k1_vs_plain_rel_err" in rec else "")
-        + f", peak GiB folded {peaks['folded']} twin {peaks['twin']}")
+        + f", P1 {p1['folded']}, peak GiB folded {peaks['folded']} twin "
+        f"{peaks['twin']}")
     del a, b, grads
     release()
     return launches, rec
@@ -4072,6 +4188,7 @@ def phase_s2d_3d(card):
     for name in S2D_3D:
         n, record[name] = s2d_twin_check(name, card, x, 3, "(al)")
         launches[f"al_{name}"] = n
+        P1_LAUNCHES[f"al_{name}"] = record[name]["p1_launches"]
     return launches, record
 
 
@@ -5010,6 +5127,7 @@ def main():
         log(f"phase {phase} done at {time.perf_counter() - t0:.1f} s")
 
     rows = phase_sites(device, images)
+    pool_rows = phase_pool_kernel(device)
     lap(2)
     phase_small_reference(device)
     phase_deep4_reference(device)
@@ -5099,6 +5217,7 @@ def main():
     lap(16)
 
     from hebbax_torch.hebb.kernels import SwtaDeltaKernel
+    from hebbax_torch.ops.s2d3d_kernels import SubpixelMax3Kernel
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                          "bound_tc_ms", "bound_f32_ms", "bound_bytes_ms")}
@@ -5128,6 +5247,19 @@ def main():
         "bound_bytes_ms": total["bound_bytes_ms"],
         "sites": len(rows),
         "shapes": [r["shape"] for r in rows],
+    }, {
+        "name": SubpixelMax3Kernel.name,
+        "route": "cuda",
+        "source": SubpixelMax3Kernel.source,
+        "replaces": None,
+        "launches": P1_LAUNCHES["em_3d"],
+        "launches_by_path": dict(P1_LAUNCHES),
+        "ms": pool_rows[0]["ms"],
+        "plain_ms": pool_rows[0]["plain_ms"],
+        "bound_ms": pool_rows[0]["bound_ms"],
+        "bound_by": "bytes",
+        "equal_to_plain": all(r["equal_to_plain"] for r in pool_rows),
+        "cases": pool_rows,
     }]}
     print(json.dumps(kernels_line), flush=True)
     return finish(device)

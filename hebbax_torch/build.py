@@ -9,7 +9,8 @@ parallel: one nvcc process each, all started together.
 
 Nothing is built at import; the first kernel launch (or an explicit
 :func:`build`) does it.  nvcc is looked up in ``$CUDA_HOME/bin``,
-``/usr/local/cuda/bin`` and ``$PATH``.
+``/usr/local/cuda/bin`` and ``$PATH``.  :class:`Kernel` is the part every
+kernel's ctypes wrapper shares: load, launch, check the return, count.
 """
 
 import ctypes
@@ -29,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library name -> sources, relative to the package
 LIBRARIES = {
     "swta_delta": ("csrc/swta_delta.cu",),
+    "subpixel_max3": ("csrc/subpixel_max3.cu",),
 }
 
 _loaded = {}
@@ -94,3 +96,34 @@ def load(name):
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+class Kernel:
+    """Base of a kernel's ctypes wrapper.  ``library`` names an entry of
+    :data:`LIBRARIES`, ``symbol`` its plain C entry, which takes
+    ``argtypes`` and then the CUDA stream and returns a CUDA error code.
+    :meth:`launch` loads (and builds) the library at the first launch,
+    runs the entry on the device's current stream without synchronising,
+    raises on a nonzero return and counts the launch in ``launches``."""
+
+    library = symbol = None
+    argtypes = ()
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+
+    def launch(self, device, *args):
+        import torch
+        if self._fn is None:
+            fn = getattr(load(self.library), self.symbol)
+            fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = self._fn(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.library} kernel launch failed: CUDA "
+                               f"error {rc}")
+        self.launches += 1

@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import build
 from . import rules
 
 _KP = 32            # pixels per stage: the K depth of a stage in the kernel
@@ -53,27 +54,15 @@ class Plan(NamedTuple):
     range_len: int
 
 
-class SwtaDeltaKernel:
+class SwtaDeltaKernel(build.Kernel):
     """ctypes wrapper of ``hebbax_swta_delta_f32`` with a launch count."""
 
-    name = "swta_delta"
+    name = library = "swta_delta"
+    symbol = "hebbax_swta_delta_f32"
     source = "hebbax_torch/csrc/swta_delta.cu"
-
-    def __init__(self):
-        self.launches = 0
-        self._fn = None
-
-    def _entry(self):
-        if self._fn is None:
-            from .. import build
-            fn = build.load("swta_delta").hebbax_swta_delta_f32
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                           + [ctypes.c_float, ctypes.c_int,
-                              ctypes.c_longlong] + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+    argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_longlong]
+                + [ctypes.c_int] * 4)
 
     @staticmethod
     def check(w, x, y, padding):
@@ -185,18 +174,11 @@ class SwtaDeltaKernel:
         part = torch.empty((pl.ranges, o, m), dtype=torch.float32,
                            device=dev)
         rsum = torch.empty((pl.ranges, o), dtype=torch.float32, device=dev)
-        fn = self._entry()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(x.data_ptr(), y.data_ptr(), w.data_ptr(),
+        self.launch(dev, x.data_ptr(), y.data_ptr(), w.data_ptr(),
                     delta.data_ptr(), part.data_ptr(), rsum.data_ptr(),
                     n, i, h, wd, o, kh, kw, padding[0], padding[1],
                     float(k), pl.ranges, pl.range_len, pl.nwg, pl.wm,
-                    pl.wn, int(pl.halo), stream)
-        if rc != 0:
-            raise RuntimeError(f"swta_delta kernel launch failed: CUDA "
-                               f"error {rc}")
-        self.launches += 1
+                    pl.wn, int(pl.halo))
         return delta
 
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..utils import trace
+from .s2d3d_kernels import SUBPIXEL_MAX3
 
 
 def prodf(f):
@@ -339,12 +340,29 @@ def _window_view(x, f):
         n, c, d // 2, h // 2, w // 2, 8)
 
 
+def first_max_grad(x, g, f):
+    """The plain version of the pool's backward: the folded gradient of
+    x with the pooled cotangent g at each window's FIRST maximum in (z,
+    y, x) order and zero elsewhere; none in a window holding a NaN."""
+    ew = _window_view(x, f)
+    m = ew == ew.amax(dim=-1, keepdim=True)
+    first = m & (torch.cumsum(m.to(torch.int32), dim=-1) == 1)
+    gx = torch.where(first, g.unsqueeze(-1).to(ew.dtype),
+                     torch.zeros((), dtype=ew.dtype, device=ew.device))
+    n, c, d2, h2, w2 = g.shape
+    gx = gx.reshape(n, c, d2, h2, w2, 2, 2, 2).permute(
+        0, 1, 2, 5, 3, 6, 4, 7).reshape(n, c, 2 * d2, 2 * h2, 2 * w2)
+    return fold3(gx, f)
+
+
 class _SubpixelMax3(torch.autograd.Function):
     """Forward: the max over each 2x2x2 window of the unfolded tensor,
     taken on the folded one.  Backward: the cotangent goes to the FIRST
     maximum of its window in (z, y, x) order (lax.reduce_window's
     select-and-scatter, the unfolded network's max pool), never split
-    among ties."""
+    among ties: on a CUDA tensor one launch of ``csrc/subpixel_max3.cu``
+    (:data:`~.s2d3d_kernels.SUBPIXEL_MAX3`), on any other
+    :func:`first_max_grad`."""
 
     @staticmethod
     def forward(ctx, x, f):
@@ -368,16 +386,9 @@ class _SubpixelMax3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        f = ctx.f
-        ew = _window_view(x, f)
-        m = ew == ew.amax(dim=-1, keepdim=True)
-        first = m & (torch.cumsum(m.to(torch.int32), dim=-1) == 1)
-        gx = torch.where(first, g.unsqueeze(-1).to(ew.dtype),
-                         torch.zeros((), dtype=ew.dtype, device=ew.device))
-        n, c, d2, h2, w2 = g.shape
-        gx = gx.reshape(n, c, d2, h2, w2, 2, 2, 2).permute(
-            0, 1, 2, 5, 3, 6, 4, 7).reshape(n, c, 2 * d2, 2 * h2, 2 * w2)
-        return fold3(gx, f), None
+        if x.is_cuda:
+            return SUBPIXEL_MAX3(x, g, ctx.f), None
+        return first_max_grad(x, g, ctx.f), None
 
 
 def subpixel_max3(x, f):
@@ -392,8 +403,8 @@ def subpixel_max3(x, f):
 
 
 __all__ = ["fold3", "unfold3", "folded_k", "fold_conv_kernel3",
-           "unfold_wgrad3", "fold_bias3", "subpixel_max3", "prodf",
-           "folded_kernel_shape3", "transpose_kernel_matrix",
+           "unfold_wgrad3", "fold_bias3", "subpixel_max3", "first_max_grad",
+           "prodf", "folded_kernel_shape3", "transpose_kernel_matrix",
            "fold_transpose_kernel3", "folded_pad3", "fold_down_kernel3",
            "group_out_perm", "regroup3", "ungroup3", "fold_nd",
            "unfold_nd", "fold_conv_kernel_nd", "unfold_wgrad_nd"]
