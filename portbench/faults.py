@@ -14,9 +14,15 @@ or extra flags of the port's CLI.
 * ``altered``: an answer altered where it is produced: the first
   trained parameter's gradient scaled by 1.1 before the optimizer
   reads it.
+* ``drop_site``: a Hebbian step with one site's delta dropped (the
+  Hebbian conv with the most weights records none).
+* ``half_k``: a Hebbian step whose rule runs at half the configured
+  inverse temperature K.
 
 There is no exchange between cards to leave out: every cell runs on one.
 """
+
+import dataclasses
 
 import torch
 
@@ -54,8 +60,25 @@ def _altered(trainer):
     opt.step = step
 
 
+def _hebbian_sites(trainer):
+    from hebbax_torch.hebb.layers import HConv
+    return [m for m in trainer.state.model.modules()
+            if isinstance(m, HConv) and m.spec is not None]
+
+
+def _drop_site(trainer):
+    site = max(_hebbian_sites(trainer), key=lambda m: m.weight.numel())
+    site._record_delta = lambda *a, **kw: None
+
+
+def _half_k(trainer):
+    for m in _hebbian_sites(trainer):
+        m.spec = dataclasses.replace(m.spec, k=m.spec.k / 2)
+
+
 MUTATIONS = {"tf32": _tf32, "unchanged": _unchanged,
-             "half_batch": _half_batch, "altered": _altered}
+             "half_batch": _half_batch, "altered": _altered,
+             "drop_site": _drop_site, "half_k": _half_k}
 FLAGS = {"bf16": ["--dtype", "bfloat16"]}
 
 

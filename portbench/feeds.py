@@ -97,9 +97,10 @@ class Feed:
 
 
 def make_loaders(cfg, traffic, args, work_dir):
-    """The semi trainer's loaders ({'train_sup', 'train_unsup'} and an
-    empty 'val'), each a :class:`Feed`; the labelled one, which an epoch
-    runs over, is the one that stops."""
+    """The loaders the mix's trainer takes, each a :class:`Feed`, and an
+    empty 'val': the semi trainer's 'train_sup' and 'train_unsup', or the
+    'train' of a trainer over labelled patches alone.  The loader an
+    epoch runs over ('train_sup', 'train') is the one that stops."""
     data, flags = cfg["data"], traffic["flags"]
     seed = args.seed
     root = placeholder_dir(os.path.join(work_dir, "volumes"),
@@ -115,5 +116,7 @@ def make_loaders(cfg, traffic, args, work_dir):
                           max_length=flags["queue_length"], seed=seed,
                           shuffle_subjects=True, shuffle_patches=True)
 
+    if traffic["trainer"] != "semi":
+        return {"train": Feed(loader(True), True), "val": []}
     return {"train_sup": Feed(loader(True), True),
             "train_unsup": Feed(loader(False), False), "val": []}

@@ -2,15 +2,20 @@
 plain reference.
 
 Set-up builds the trainer the port's own CLI builds for the cell's flags
-(``hebbax_torch.cli.train_semi_3d.build``) over the port's loaders on the
-seed's items (:mod:`portbench.feeds`), loading the Hebbian snapshot the
-mix names as a sweep line loads the one an earlier pretraining line
-wrote; loads the benchmark's weights (:mod:`portbench.weights`) and sets
-the step count to the mix's ``start_epoch`` (a run resumed there: the
-schedule's epoch 0 trains at a learning rate of 0).  Its first partial
-epoch runs through ``trainer.train_epoch``, the window's own call and
-feed: the first ``check_steps`` steps are the ones the reference follows,
-the rest warm up.
+over the port's loaders on the seed's items (:mod:`portbench.feeds`).
+The CLI is ``hebbax_torch.cli.<cli>``, ``cli`` named by the traffic mix
+(``train_semi_3d`` where it names none), found by name and built by its
+own ``build``; a mix's ``algo`` is passed to the CLI's parser and
+``build`` first, as ``train_semi_3d`` takes it.  The CLI's ``--seed``,
+the items and the weights all come from the run's seed.  Where the mix
+names a ``snapshot``, the trainer loads that Hebbian snapshot as a sweep
+line loads the one an earlier pretraining line wrote.  Set-up then loads the
+benchmark's weights (:mod:`portbench.weights`) and sets the step count
+to the mix's ``start_epoch`` (a run resumed there: the schedule's epoch
+0 trains at a learning rate of 0).  Its first partial epoch runs through
+``trainer.train_epoch``, the window's own call and feed: the first
+``check_steps`` steps are the ones the reference follows, the rest warm
+up.
 
 The snapshot is written once per checkout, at a fixed path under
 ``build/portbench/``, by the port's 3D pretraining trainer with no step
@@ -31,14 +36,15 @@ gives the numbers held to the cell's limits.
 """
 
 import gc
+import importlib
 import os
 import shutil
 import tempfile
 import time
 import types
 
+import hebbax_torch.cli
 import torch
-from hebbax_torch.cli import train_semi_3d
 
 from . import counts, feeds, trace, weights
 from .reference import batches as ref_batches
@@ -100,21 +106,36 @@ def snapshot(cell):
     return path
 
 
+DEFAULT_CLI = "train_semi_3d"
+
+
+def cli_module(traffic):
+    """The port's CLI module the mix names, ``hebbax_torch.cli.<cli>``."""
+    name = traffic.get("cli", DEFAULT_CLI)
+    path = os.path.join(os.path.dirname(hebbax_torch.cli.__file__),
+                        name + ".py")
+    if not os.path.exists(path):
+        raise ValueError(f"unknown cli {name!r}: no file {path}")
+    return importlib.import_module("hebbax_torch.cli." + name)
+
+
 def build_trainer(cell, seed, dev_flag, work, snap, extra_argv=()):
     cfg, traffic = cell.config, cell.traffic
-    mod = train_semi_3d
+    mod = cli_module(traffic)
+    algo = (traffic["algo"],) if "algo" in traffic else ()
     argv = (_common_argv(cfg, seed, dev_flag, work)
-            + flag_argv(traffic["flags"]) + list(extra_argv)
-            + ["--load_hebbian_weights", snap])
-    args = mod.build_parser(traffic["algo"]).parse_args(argv)
+            + flag_argv(traffic["flags"]) + list(extra_argv))
+    if snap is not None:
+        argv += ["--load_hebbian_weights", snap]
+    args = mod.build_parser(*algo).parse_args(argv)
     loaders = feeds.make_loaders(cfg, traffic, args, work)
-    return mod.build(args, traffic["algo"], loaders=loaders)
+    return mod.build(args, *algo, loaders=loaders)
 
 
 class Steps:
-    """Wraps ``trainer.train_step``: the rows each step consumed (the
-    labelled and the unlabelled batch), and hooks called with (step
-    number, the step's output)."""
+    """Wraps ``trainer.train_step``: the rows each step consumed (those of
+    every batch it took: the labelled and the unlabelled one of a semi
+    step), and hooks called with (step number, the step's output)."""
 
     def __init__(self, trainer):
         self.real = trainer.train_step
@@ -123,23 +144,29 @@ class Steps:
         self.span = None
         trainer.train_step = self
 
-    def __call__(self, state, sup, unsup, *rest):
+    def __call__(self, state, *batches):
         if self.span is None:
-            state, out = self.real(state, sup, unsup, *rest)
+            state, out = self.real(state, *batches)
         else:
             with self.span("pb.step"):
-                state, out = self.real(state, sup, unsup, *rest)
-        self.rows += sup["image"].shape[0] + unsup["image"].shape[0]
+                state, out = self.real(state, *batches)
+        self.rows += sum(b["image"].shape[0] for b in batches
+                         if isinstance(b, dict) and "image" in b)
         self.count += 1
         for hook in self.hooks:
             hook(self.count, out)
         return state, out
 
 
+# the optimizer's state the check reads after the first step: SGD's
+# momentum buffer, Adam's first moment (a tenth of the first gradient)
+STATE_KEY = {"SGD": "momentum_buffer", "Adam": "exp_avg"}
+
+
 class Check:
     """The program's readings of the first ``n`` steps: each step's losses,
-    the first step's logits, the optimizer's state after it (SGD's
-    momentum buffer), each parameter's change after the n-th (read
+    the first step's logits, the optimizer's state after it
+    (:data:`STATE_KEY`), each parameter's change after the n-th (read
     before the next step)."""
 
     def __init__(self, trainer, model, p0, n):
@@ -159,8 +186,9 @@ class Check:
         if k == 1:
             r["logits"] = out["logits"].detach().float().cpu()
             opt = self.trainer.state.optimizer
+            key = STATE_KEY[type(opt).__name__]
             for name, p in self.params.items():
-                t = opt.state.get(p, {}).get("momentum_buffer")
+                t = opt.state.get(p, {}).get(key)
                 if t is not None:
                     r["state"][name] = float(t.norm())
         if k == self.n:
@@ -205,7 +233,7 @@ def run_cell(cell, seed, seconds, traced, device, process_start,
     work = tempfile.mkdtemp(prefix="portbench-")
     phases = {"entered": time.time() - process_start}
     try:
-        snap = snapshot(cell)
+        snap = snapshot(cell) if "snapshot" in traffic else None
         phases["snapshot"] = time.time() - process_start
         trainer = build_trainer(cell, seed, "0" if cuda else "cpu", work,
                                 snap, extra_argv)
@@ -365,19 +393,18 @@ def _context(cell, w, summary, prep_s):
         prep_s=prep_s,
         profile=summary,
         step_flops=counts.step_flops(cell.config, cell.traffic),
-        peak_flops=counts.PEAK_FLOPS)
+        peak_flops=counts.PEAK_FLOPS,
+        delta_roofline_s=counts.delta_roofline_s(cell.config, cell.traffic))
 
 
 def reference_check(cell, seed, device, work, readings):
     """The gaps between the program's readings of the first steps and
     the reference's, and ``correct`` (every gap at most its limit)."""
     cfg, traffic = cell.config, cell.traffic
-    flags, n = traffic["flags"], traffic["check_steps"]
     names = [f for f in os.listdir(os.path.join(work, "volumes", "image"))
              if f.endswith(".nrrd")]
-    batches = list(zip(
-        ref_batches.batches_3d(cfg, flags, seed, names, n, True),
-        ref_batches.batches_3d(cfg, flags, seed, names, n, False)))
+    batches = ref_batches.step_batches(cfg, traffic, seed, names,
+                                       traffic["check_steps"])
     w0 = weights.make_weights(Net(cfg).params(), seed, device)
     ref = follow(cfg, traffic, w0, batches, device)
     del w0

@@ -122,3 +122,19 @@ def batches_3d(cfg, flags, seed, names, n_batches, sup, epoch=0):
     pending.extend(buffer)
     drain(True)
     return out
+
+
+def step_batches(cfg, traffic, seed, names, n_steps):
+    """The batches each of the first ``n_steps`` steps of the mix's
+    trainer takes in a run of ``seed``: (labelled, unlabelled) for the
+    semi trainer, (batch,) for a trainer over one labelled loader."""
+    if cfg["data"]["kind"] != "volume3d":
+        raise ValueError(f"no batches of {cfg['data']['kind']!r} data")
+    flags = traffic["flags"]
+
+    def queue(sup):
+        return batches_3d(cfg, flags, seed, names, n_steps, sup)
+
+    if traffic["trainer"] == "semi":
+        return list(zip(queue(True), queue(False)))
+    return [(b,) for b in queue(True)]

@@ -6,8 +6,9 @@ reading and the reference's:
 * ``logits``: the first step's largest absolute logit gap over the
   reference's largest absolute logit;
 * ``state``: the worst parameter's gap between the norms of the
-  optimizer's state after the first step (SGD's momentum buffer), over the reference's norm of that parameter or of
-  the median parameter, whichever is larger;
+  optimizer's state after the first step (SGD's momentum buffer, Adam's
+  first moment), over the reference's norm of that parameter or of the
+  median parameter, whichever is larger;
 * ``change``: the same for the change of each parameter after the last
   step followed, over the parameters whose first gradient in the
   reference is at least a thousandth of the median parameter's (a

@@ -2,20 +2,30 @@
 them: each step's losses, the first step's logits, the optimizer's state
 after the first step and the change of every parameter after the last,
 per parameter, with the first gradient's norms (which leaves the change
-is compared on)."""
+is compared on).  The mix's ``trainer`` picks the step: ``semi`` (EM,
+below) or ``hebbian`` (:mod:`.hebbian`)."""
 
 import torch
 
-from . import losses, optim
+from . import hebbian, losses, optim
 from .nets import Net
 
 
 def follow(cfg, traffic, weights, batches, device):
+    """The readings of ``len(batches)`` steps of the mix's trainer from
+    ``weights`` on ``batches`` (the batches each step takes), on
+    ``device``: {'losses': {kind: [per step]}, 'logits', 'state': {name:
+    norm}, 'grad': {name: norm}, 'change': {name: norm}}."""
+    kind = traffic["trainer"]
+    if kind not in STEPS:
+        raise ValueError(f"the reference has no {kind!r} trainer")
+    return STEPS[kind](cfg, traffic, weights, batches, device)
+
+
+def follow_em(cfg, traffic, weights, batches, device):
     """Run ``len(batches)`` EM steps of the cell from ``weights`` on the
     ``batches`` ([(sup, unsup)], each {'image', 'mask'}), on ``device``,
-    in float32 with TF32 off.  Returns {'losses': {kind: [per step]},
-    'logits', 'state': {name: norm}, 'grad': {name: norm},
-    'change': {name: norm}}."""
+    in float32 with TF32 off."""
     flags = traffic["flags"]
     if traffic["algo"] != "em":
         raise ValueError(f"the reference has no {traffic['algo']!r} step")
@@ -52,3 +62,6 @@ def follow(cfg, traffic, weights, batches, device):
             out["grad"] = {n: float(grads[n].norm()) for n in names}
     out["change"] = {n: float((P[n] - P0[n]).norm()) for n in names}
     return out
+
+
+STEPS = {"semi": follow_em, "hebbian": hebbian.follow}

@@ -1,18 +1,55 @@
-"""The unfolded 3D U-Net as a function of a parameter dict,
-channels-first, float32, in training mode (batch statistics): blocks of
-two conv3-BN-ReLU at ``init_features`` f, 2f, 4f, 8f and a 16f
-bottleneck, 2x2x2 max pools, transpose convs (k 2, s 2) up with
-``[up, skip]`` concatenated, and a 1x1x1 head ``conv``.
+"""The plain reference network of a configuration, found by its
+``arch``: ``reference/arch_<arch>.py`` beside this file, loaded by name
+as ``spec.Cell.reader`` loads ``metrics/<name>.py``.  An arch module
+gives
+
+* ``params(cfg)``: [(name, shape)] of every parameter, in a fixed order;
+* ``forward(net, P, x)``: the network on the parameter dict ``P``, built
+  from the layers of ``net`` (a :class:`Net`: ``conv`` with its Hebbian
+  normalisation, ``norm``);
+* ``conv_sites(cfg, batch, spatial)``: every conv in forward order,
+  {path, cin, cout, k, n, in_sp, out_sp, transpose};
+* ``forward_flops(cfg, batch, spatial)``: the forward's FLOPs, two per
+  multiply-add.
 
 Batch norm normalises by the batch's biased variance (eps from the
 configuration).  A Hebbian conv (with ``hebb_exclude`` given, every conv
 whose path is not under an excluded module path) convolves with its
 weight normalised per output filter (per input channel for a transpose
-conv), as a Hebbian snapshot's layers do when fine-tuned with alpha 0.
+conv), as a Hebbian layer does with ``w_nrm``; ``record``, where set, is
+called on each Hebbian conv with (path, raw weight, input, output,
+padding, transpose, stride).  A transpose conv has kernel and stride 2.
 """
+
+import importlib.util
+import os
 
 import torch
 import torch.nn.functional as F
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+_ARCHS = {}
+
+
+def arch(name):
+    """The module of ``arch_<name>.py`` beside this file."""
+    path = os.path.join(HERE, f"arch_{name}.py")
+    if path not in _ARCHS:
+        if not os.path.exists(path):
+            raise ValueError(f"unknown arch {name!r}: no file {path}")
+        spec = importlib.util.spec_from_file_location(
+            "portbench_arch_" + name.replace(".", "_"), path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _ARCHS[path] = mod
+    return _ARCHS[path]
+
+
+def excluded(path, exclude):
+    """Whether a dotted module path lies under one of ``exclude``."""
+    parts = path.split(".")
+    return any(".".join(parts[:i]) in exclude
+               for i in range(1, len(parts) + 1))
 
 
 def normalize(w):
@@ -29,66 +66,33 @@ class Net:
     parameters, ``forward(P, x)`` runs it on the parameter dict ``P``."""
 
     def __init__(self, cfg, hebb_exclude=None):
-        if cfg["arch"] != "unet3d":
-            raise ValueError(f"unknown arch {cfg['arch']!r}")
+        self.arch = arch(cfg["arch"])
         self.cfg = cfg
         self.hebb_exclude = hebb_exclude
-        self.convs = []          # (path, cin, cout, k, transpose)
-        self.norms = []
-        self._plan_unet3d()
-
-    # -- parameters -------------------------------------------------------
-
-    def _conv(self, path, cin, cout, k, transpose=False):
-        self.convs.append((path, cin, cout, k, transpose))
-
-    def _plan_unet3d(self):
-        f = self.cfg["init_features"]
-        chans = [self.cfg["in_channels"], f, 2 * f, 4 * f, 8 * f]
-
-        def block(p, cin, cout):
-            self._conv(f"{p}.conv1", cin, cout, (3, 3, 3))
-            self.norms.append((f"{p}.norm1", cout))
-            self._conv(f"{p}.conv2", cout, cout, (3, 3, 3))
-            self.norms.append((f"{p}.norm2", cout))
-
-        for i in range(4):
-            block(f"encoder.encoder{i + 1}", chans[i], chans[i + 1])
-        block("encoder.bottleneck", 8 * f, 16 * f)
-        for i, ch in zip((4, 3, 2, 1), (8 * f, 4 * f, 2 * f, f)):
-            self._conv(f"decoder.upconv{i}", 2 * ch, ch, (2, 2, 2),
-                       transpose=True)
-            block(f"decoder.decoder{i}", 2 * ch, ch)
-        self._conv("conv", f, self.cfg["num_classes"], (1, 1, 1))
+        self.record = None
 
     def params(self):
-        """[(name, shape)]: every conv's weight ((O, I, *k), a transpose
-        conv's (I, O, *k)) and bias, every norm's weight and bias."""
-        out = []
-        for path, cin, cout, k, transpose in self.convs:
-            w = (cin, cout) if transpose else (cout, cin)
-            out += [(f"{path}.weight", w + tuple(k)),
-                    (f"{path}.bias", (cout,))]
-        for path, ch in self.norms:
-            out += [(f"{path}.weight", (ch,)), (f"{path}.bias", (ch,))]
-        return out
+        return self.arch.params(self.cfg)
 
     def hebbian(self, path):
         if self.hebb_exclude is None:
             return False
-        parts = path.split(".")
-        return not any(".".join(parts[:i]) in self.hebb_exclude
-                       for i in range(1, len(parts) + 1))
+        return not excluded(path, self.hebb_exclude)
 
     # -- layers -----------------------------------------------------------
 
-    def conv(self, P, path, x, padding=0, transpose=False):
+    def conv(self, P, path, x, padding=0, transpose=False, stride=1):
         w, b = P[f"{path}.weight"], P[f"{path}.bias"]
-        if self.hebbian(path):
-            w = normalize(w)
+        hebbian = self.hebbian(path)
+        wn = normalize(w) if hebbian else w
         if transpose:
-            return F.conv_transpose3d(x, w, b, stride=2)
-        return F.conv3d(x, w, b, padding=padding)
+            stride = 2
+            y = F.conv_transpose3d(x, wn, b, stride=stride)
+        else:
+            y = F.conv3d(x, wn, b, padding=padding, stride=stride)
+        if hebbian and self.record is not None:
+            self.record(path, w, x, y, padding, transpose, stride)
+        return y
 
     def norm(self, P, path, x):
         dims = (0,) + tuple(range(2, x.dim()))
@@ -101,21 +105,4 @@ class Net:
     # -- network ----------------------------------------------------------
 
     def forward(self, P, x):
-        def block(p, h):
-            h = F.relu(self.norm(P, f"{p}.norm1", self.conv(P, f"{p}.conv1",
-                                                            h, 1)))
-            return F.relu(self.norm(P, f"{p}.norm2",
-                                    self.conv(P, f"{p}.conv2", h, 1)))
-
-        feats, h = [], x
-        for i in range(1, 5):
-            if i > 1:
-                h = F.max_pool3d(h, 2)
-            h = block(f"encoder.encoder{i}", h)
-            feats.append(h)
-        h = block("encoder.bottleneck", F.max_pool3d(h, 2))
-        for i in (4, 3, 2, 1):
-            h = self.conv(P, f"decoder.upconv{i}", h, transpose=True)
-            h = block(f"decoder.decoder{i}", torch.cat([h, feats[i - 1]],
-                                                       dim=1))
-        return self.conv(P, "conv", h)
+        return self.arch.forward(self, P, x)

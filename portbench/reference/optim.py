@@ -1,5 +1,5 @@
 """SGD with momentum and L2 weight decay added to the gradient before the
-momentum, written out, and the warm-up / step learning rate of an
+momentum, Adam, written out, and the warm-up / step learning rate of an
 epoch."""
 
 
@@ -28,3 +28,31 @@ class SGD:
         one step."""
         return self.buf[name]
 
+
+
+class Adam:
+    """Adam with bias correction and no weight decay, as ``torch.optim``
+    writes it; the port's ``build_optimizer`` keeps its betas and eps
+    (0.9, 0.999, 1e-8) and gives Adam no decay."""
+
+    def __init__(self, b1=0.9, b2=0.999, eps=1e-8):
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.m, self.v, self.t = {}, {}, 0
+
+    def step(self, params, grads, lr):
+        self.t += 1
+        c1, c2 = 1 - self.b1 ** self.t, 1 - self.b2 ** self.t
+        for name, g in grads.items():
+            m = (1 - self.b1) * g
+            v = (1 - self.b2) * g * g
+            if name in self.m:
+                m = m + self.b1 * self.m[name]
+                v = v + self.b2 * self.v[name]
+            self.m[name], self.v[name] = m, v
+            params[name] = params[name] - lr * (m / c1) / (
+                (v / c2).sqrt() + self.eps)
+
+    def state(self, name):
+        """The first moment: a tenth of the first gradient after one
+        step."""
+        return self.m[name]

@@ -1,7 +1,9 @@
 """The benchmark's data, found by name: ``BENCHMARK.json`` at the root,
 ``configs/<config>.json``, ``traffic/<traffic>.json``,
-``limits/<workload>.json`` and a reader ``metrics/<metric>.py`` per
-per-layer metric.  A cell brings its files; nothing here names one."""
+``limits/<workload>.json``, a reader ``metrics/<metric>.py`` per
+per-layer metric and a plain network ``reference/arch_<arch>.py`` per
+configuration's ``arch`` (:mod:`portbench.reference.nets`).  A cell
+brings its files; nothing here names one."""
 
 import importlib.util
 import json

@@ -1,7 +1,8 @@
-"""A stand-in cell that lives only in the tests: the configuration of the
-benchmark's cell at a size a CPU test can hold (the 3D UNet at 32
-features, unfolded, on 32^3 patches of 40x36x34 volumes), in a copy of
-``portbench/`` beside a ``BENCHMARK.json`` that names only it."""
+"""Stand-in cells that live only in the tests: the configuration of the
+benchmark's cells at a size a CPU test can hold (the 3D UNet at 32
+features, unfolded, on 32^3 patches of 40x36x34 volumes) under the EM
+mix and the Hebbian pretraining mix, in a copy of ``portbench/`` beside a
+``BENCHMARK.json`` that names only them."""
 
 import json
 import os
@@ -11,12 +12,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PORTBENCH = os.path.dirname(HERE)
 REPO = os.path.dirname(PORTBENCH)
 CELL = "tiny3d.tiny_em"
+HEBB_CELL = "tiny3d.tiny_hebb"
 # float32 rounding at this size reads up to 1.1e-3 (state) and 3.6e-3
 # (change), the reference against itself in float64 as much as the port
 # against the reference; each planted fault reads over ten times a
 # limit (bf16's logits 0.019, half_batch's change 0.116, altered's state
 # 0.1, unchanged's 1)
 LIMITS = {"loss": 1e-4, "logits": 1e-4, "state": 5e-3, "change": 1e-2}
+# the Hebbian stand-in reads up to 6e-8 (loss), 1.3e-6 (logits), 4.0e-6
+# (state) and 5.1e-6 (change); each planted fault reads over ten times a
+# limit (bf16's logits 0.016, altered's state 0.1, drop_site's change 1,
+# half_k's state 0.021, unchanged's 1)
+HEBB_LIMITS = {"loss": 1e-4, "logits": 1e-4, "state": 1e-3, "change": 1e-3}
 
 
 def _load(rel):
@@ -44,16 +51,23 @@ def make_root(tmp):
     t3 = _load("traffic/em_semi.json")
     t3["flags"].update(regime=20, queue_length=8,
                        samples_per_volume_train=2)
+    th = _load("traffic/hebb_pretrain.json")
+    th["flags"].update(queue_length=8, samples_per_volume_train=2)
     _dump(c3, os.path.join(pb, "configs", "tiny3d.json"))
     _dump(t3, os.path.join(pb, "traffic", "tiny_em.json"))
+    _dump(th, os.path.join(pb, "traffic", "tiny_hebb.json"))
     _dump({"limits": LIMITS}, os.path.join(pb, "limits", CELL + ".json"))
+    _dump({"limits": HEBB_LIMITS},
+          os.path.join(pb, "limits", HEBB_CELL + ".json"))
     bench = _load("../BENCHMARK.json")
     bench["configs"] = [dict(name="tiny3d",
                              source="https://example.org/stand-in",
                              file="portbench/configs/tiny3d.json",
                              reduced=[], why="test")]
     bench["workloads"] = [dict(name=CELL, config="tiny3d",
-                               traffic="tiny_em", chips=1, why="test")]
+                               traffic="tiny_em", chips=1, why="test"),
+                          dict(name=HEBB_CELL, config="tiny3d",
+                               traffic="tiny_hebb", chips=1, why="test")]
     _dump(bench, os.path.join(root, "BENCHMARK.json"))
     return root
 

@@ -1,12 +1,14 @@
 """The harness on the CPU, on stand-in cells that live only in these
 tests (:mod:`.standin`): the shape of a run's last line, a traced run, a
-cell, mix and metric added as files alone, the whole-name check of
-``sys.modules``, the checks that a broken step fails, and no result
-without the port or without a card."""
+cell, mix and metric added as files alone, a network added as files
+alone, an unknown network or CLI named by its file, the whole-name check
+of ``sys.modules``, the checks that a broken EM or Hebbian step fails,
+and no result without the port or without a card."""
 
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -14,7 +16,8 @@ import sys
 import pytest
 import torch
 
-from portbench import faults, harness, run, spec
+from portbench import counts, faults, harness, run, spec
+from portbench.reference.nets import Net
 
 from . import standin
 
@@ -110,6 +113,50 @@ def test_added_cell_mix_and_metric_need_no_edit(tmp_path):
     assert all(after[p] == h for p, h in before.items())
 
 
+def test_added_arch_needs_no_edit(tmp_path):
+    root = standin.make_root(tmp_path)
+    before = _digest(root)
+    pb = os.path.join(root, "portbench")
+    shutil.copy(os.path.join(pb, "reference", "arch_unet3d.py"),
+                os.path.join(pb, "reference", "arch_tinynet.py"))
+    with open(os.path.join(pb, "configs", "tiny3d.json")) as f:
+        cfg = json.load(f)
+    cfg.update(name="tinynet", arch="tinynet")
+    with open(os.path.join(pb, "configs", "tinynet.json"), "w") as f:
+        json.dump(cfg, f)
+    shutil.copy(os.path.join(pb, "limits", standin.HEBB_CELL + ".json"),
+                os.path.join(pb, "limits", "tinynet.tiny_hebb.json"))
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    bench["configs"].append(dict(bench["configs"][0], name="tinynet",
+                                 file="portbench/configs/tinynet.json"))
+    bench["workloads"].append(dict(name="tinynet.tiny_hebb",
+                                   config="tinynet", traffic="tiny_hebb",
+                                   chips=1, why="test"))
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    r = _run(root, "tinynet.tiny_hebb", trace=1)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    assert line["correct"] is True and line["attempted"] > 0
+    # the device metrics have no device to read on the CPU
+    assert set(line["metrics"]) == {"data_wait_ms", "prep_ms"}
+    # a mix with no snapshot writes none
+    assert not os.path.exists(os.path.join(root, "build", "portbench"))
+    after = _digest(root)
+    assert all(after[p] == h for p, h in before.items())
+
+
+@pytest.mark.parametrize("lookup,file", [
+    (lambda: Net({"arch": "nosuch"}), "arch_nosuch.py"),
+    (lambda: counts.forward_flops({"arch": "nosuch"}, 1, (8, 8, 8)),
+     "arch_nosuch.py"),
+    (lambda: harness.cli_module({"cli": "nosuch_cli"}), "nosuch_cli.py")])
+def test_unknown_arch_or_cli_names_its_file(lookup, file):
+    with pytest.raises(ValueError, match=re.escape(file)):
+        lookup()
+
+
 def test_benchmark_names_every_file_it_needs():
     root = standin.REPO
     with open(os.path.join(root, "BENCHMARK.json")) as f:
@@ -156,5 +203,16 @@ def test_the_check_catches_a_broken_step(root, variant):
     c = spec.Cell(root, standin.CELL, here=os.path.join(root, "portbench"))
     mutate, extra = faults.variant(variant)
     r = harness.run_cell(c, 2147483647 + 12, 0, False, torch.device("cpu"),
+                         0.0, mutate=mutate, extra_argv=extra, window=False)
+    assert r["correct"] is (variant == "program"), r["checks"]
+
+
+@pytest.mark.parametrize("variant", ["program", "bf16", "unchanged",
+                                     "altered", "drop_site", "half_k"])
+def test_the_check_catches_a_broken_hebbian_step(root, variant):
+    c = spec.Cell(root, standin.HEBB_CELL,
+                  here=os.path.join(root, "portbench"))
+    mutate, extra = faults.variant(variant)
+    r = harness.run_cell(c, 2147483647 + 14, 0, False, torch.device("cpu"),
                          0.0, mutate=mutate, extra_argv=extra, window=False)
     assert r["correct"] is (variant == "program"), r["checks"]

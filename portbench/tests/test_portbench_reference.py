@@ -1,7 +1,8 @@
 """The plain reference against the port at small sizes on the CPU: the
 weight-normalised forward of a fine-tune (the folded 3D network
-included), the losses, the update and the batches the patch queue gives;
-and that the reference imports nothing of the port."""
+included), the swta deltas, the losses, the updates and the batches the
+patch queue gives; and that the reference imports nothing of the
+port."""
 
 import json
 import os
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from hebbax_torch.data.volumes3d import PatchQueue
+from hebbax_torch.hebb import rules
 from hebbax_torch.hebb.spec import HebbSpec
 from hebbax_torch.hebb.surgery import pop_deltas
 from hebbax_torch.models import get_network
@@ -21,7 +23,7 @@ from hebbax_torch.config.schedules import make_optimizer
 from hebbax_torch.engine.loop import to_device_batch_3d
 
 from portbench import feeds, inputs, weights
-from portbench.reference import batches, losses, optim
+from portbench.reference import batches, hebbian, losses, optim
 from portbench.reference.nets import Net
 
 PB = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -92,6 +94,45 @@ def test_sgd_update():
                           rtol=1e-6)
 
 
+@pytest.mark.parametrize("transpose", [False, True])
+def test_swta_delta_follows_the_rule(transpose):
+    """The reference's matmul-per-tap deltas against the port's composed
+    rules (its weight-gradient convolutions), in float64."""
+    g = _gen(6)
+    x = torch.randn(2, 6, 6, 5, 4, generator=g, dtype=torch.float64)
+    if transpose:
+        w = torch.randn(6, 5, 2, 2, 2, generator=g, dtype=torch.float64)
+        y = torch.nn.functional.conv_transpose3d(x, w, stride=2)
+    else:
+        w = torch.randn(5, 6, 3, 3, 3, generator=g, dtype=torch.float64)
+        y = torch.nn.functional.conv3d(x, w, padding=1)
+    spec = HebbSpec(mode="swta_t", k=3.0)
+    want = rules.compute_delta(spec, w, x, y, (1, 1, 1), transpose,
+                               2 if transpose else 1, dtype=torch.float64)
+    got = (hebbian.swta_t_delta(w, x, y, 3.0) if transpose
+           else hebbian.swta_delta(w, x, y, 3.0, 1))
+    assert torch.allclose(got, want, rtol=1e-10, atol=1e-10)
+
+
+def test_adam_update():
+    g = _gen(5)
+    p0 = torch.randn(5, 3, generator=g)
+    p = torch.nn.Parameter(p0.clone())
+    opt = make_optimizer("adam", [p])
+    ref = optim.Adam()
+    P = {"p": p0.clone()}
+    for lr in (1e-3, 1e-3, 5e-4):
+        grad = torch.randn(5, 3, generator=g) * 1e-4
+        for group in opt.param_groups:
+            group["lr"] = lr
+        p.grad = grad.clone()
+        opt.step()
+        ref.step(P, {"p": grad}, lr)
+        assert torch.allclose(p.detach(), P["p"], rtol=1e-6, atol=1e-9)
+    assert torch.allclose(opt.state[p]["exp_avg"], ref.state("p"),
+                          rtol=1e-6)
+
+
 def test_epoch_lr():
     from hebbax_torch.config.schedules import warmup_step_lr
     for e in (0, 1, 19, 20, 21, 70, 71, 150):
@@ -135,6 +176,8 @@ def test_reference_imports_nothing_of_the_port():
         "import portbench.reference.follow, portbench.reference.batches\n"
         "import portbench.reference.compare, portbench.inputs\n"
         "import portbench.weights, portbench.counts\n"
+        "import portbench.reference.nets as nets\n"
+        "nets.arch('unet3d')\n"
         "bad = {m.split('.')[0] for m in sys.modules} & {'hebbax_torch',"
         " 'hebbax', 'jax'}\n"
         "assert not bad, bad\n")

@@ -3,7 +3,9 @@
 Ranges (``torch.profiler.record_function``) are opened by the benchmark
 around its calls into the port, only in a traced run: ``pb.step`` around
 ``trainer.train_step``, ``pb.forward`` around the model's forward (a
-forward pre-hook and hook), ``pb.prep`` around ``trainer.prep``, ``pb.data_wait``
+forward pre-hook and hook), ``pb.delta`` around each call of
+``hebbax_torch.hebb.rules.compute_delta`` (a Hebbian conv's delta, inside
+its layer's forward), ``pb.prep`` around ``trainer.prep``, ``pb.data_wait``
 around each ``next()`` of a loader handed to the trainer and
 ``pb.epoch`` around ``trainer.train_epoch``.
 
@@ -15,9 +17,11 @@ import bisect
 
 import torch
 
-RANGES = ("pb.step", "pb.forward", "pb.prep", "pb.data_wait", "pb.epoch")
+RANGES = ("pb.step", "pb.forward", "pb.delta", "pb.prep", "pb.data_wait",
+          "pb.epoch")
 # what the host was doing in an idle gap, innermost range first
 GAP_LABELS = (("pb.data_wait", "data_wait"), ("pb.prep", "prep"),
+              ("pb.delta", "delta_dispatch"),
               ("pb.forward", "step_dispatch"),
               ("pb.step", "step_dispatch"),
               ("pb.epoch", "loop_and_epoch_end_read"))
@@ -55,6 +59,17 @@ class Instruments:
 
         trainer.train_epoch = train_epoch
         self._undo.append(lambda: delattr(trainer, "train_epoch"))
+
+        from hebbax_torch.hebb import rules
+        real_delta = rules.compute_delta
+
+        def compute_delta(*a, **kw):
+            with span("pb.delta"):
+                return real_delta(*a, **kw)
+
+        rules.compute_delta = compute_delta
+        self._undo.append(lambda: setattr(rules, "compute_delta",
+                                          real_delta))
 
     def remove(self):
         for f in reversed(self._undo):
