@@ -27,7 +27,14 @@ The window then calls ``trainer.train_epoch`` epoch after epoch, as the
 CLI's ``run()`` does without its validation, snapshots and logging; the
 loader an epoch runs over stops once the window's seconds have passed,
 and the window closes after that epoch's own end read and a
-``synchronize``.
+``synchronize``.  A traced run profiles a stretch of the window
+(:mod:`portbench.trace`), times each step and epoch of the whole window
+by timing events (:class:`portbench.program_trace.Marks`; a step's
+events hold the harness's own work after it, the profiler's start and
+stop among it, so that no gap between steps holds it) and turns the
+port's own tracing (``hebbax_torch.utils.trace``) on for the window, so
+the readers see its ``hx.*`` spans and sync counts beside the
+benchmark's ``pb.*`` ranges; an untraced run does none of this.
 
 Once the window has closed and the peak memory is read, the program's
 state is freed and the reference follows the first steps from the same
@@ -40,13 +47,15 @@ import importlib
 import os
 import shutil
 import tempfile
+import threading
 import time
 import types
 
 import hebbax_torch.cli
+import hebbax_torch.utils.trace as hx_trace
 import torch
 
-from . import counts, feeds, trace, weights
+from . import counts, feeds, program_trace, trace, weights
 from .reference import batches as ref_batches
 from .reference import compare
 from .reference.follow import follow
@@ -227,7 +236,10 @@ def run_cell(cell, seed, seconds, traced, device, process_start,
     """One run; returns the result dict (``correct``, ``attempted``,
     ``failed``, ``metrics``, ``device``, ``breakdown``, ``checks``).
     ``mutate(trainer)`` changes the built program (a control or a planted
-    fault); ``window=False`` reads the check alone."""
+    fault); ``window=False`` reads the check alone.  A traced run turns
+    the port's own tracing on after the checked steps and off after the
+    window, so its ``hx.*`` spans and counters reach the readers
+    (:func:`_context`); an untraced run leaves it as it is."""
     cfg, traffic = cell.config, cell.traffic
     cuda = device.type == "cuda"
     work = tempfile.mkdtemp(prefix="portbench-")
@@ -266,7 +278,7 @@ def run_cell(cell, seed, seconds, traced, device, process_start,
         stop.cap = None
         phases["checked"] = time.time() - process_start
         readings = check.readings
-        instruments = prep = None
+        instruments = prep = marks = None
         if traced:
             trace.warm_profiler(_activities(cuda))
             instruments = trace.Instruments(trainer, model)
@@ -274,12 +286,27 @@ def run_cell(cell, seed, seconds, traced, device, process_start,
             steps.span = trace.span
             for f in _feeds(trainer):
                 f.span = trace.span
+            if cuda:
+                marks = program_trace.Marks()
+                trainer.train_step = marks.wrap(steps, program_trace.STEP)
+                trainer.train_epoch = marks.wrap(trainer.train_epoch,
+                                                 program_trace.EPOCH)
+            hx_trace.enable(cuda)
         _sync(cuda)
         setup_s = time.time() - process_start
         prof_box = {}
-        if window:
-            w = _window(trainer, steps, seconds, traffic, traced, cuda,
-                        prof_box)
+        try:
+            if window:
+                w = _window(trainer, steps, seconds, traffic, traced, cuda,
+                            prof_box)
+        finally:
+            if traced:
+                hx_trace.disable()
+        report = None
+        if traced:
+            report = program_trace.read_record(
+                hx_trace.intervals(), hx_trace.counters().get("sync", {}),
+                marks.gaps() if marks else [], threading.get_ident(), cuda)
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         if instruments is not None:
             instruments.remove()
@@ -289,9 +316,13 @@ def run_cell(cell, seed, seconds, traced, device, process_start,
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
-        summary = None
+        summary = spans = None
         if window and traced and prof_box.get("prof") is not None:
             summary = trace.read(prof_box["prof"], prof_box["n"])
+            spans = program_trace.read_program(prof_box["prof"],
+                                               prof_box["n"])
+        if traced:
+            hx_trace.reset()
         checks, correct = reference_check(cell, seed, device, work,
                                           readings)
     finally:
@@ -304,7 +335,7 @@ def run_cell(cell, seed, seconds, traced, device, process_start,
     if window:
         out["attempted"] = w["steps"]
         if traced:
-            ctx = _context(cell, w, summary, prep_s)
+            ctx = _context(cell, w, summary, prep_s, spans, report)
             for m in cell.metrics("per_layer"):
                 v = cell.reader(m["name"]).read(ctx)
                 if v is not None:
@@ -324,6 +355,8 @@ def run_cell(cell, seed, seconds, traced, device, process_start,
     out["run"] = {"setup_s": setup_s, "setup_phases": phases,
                   "attributed_share": summary and summary["attributed"],
                   **(w if window else {})}
+    if traced:
+        out["run"]["program"] = {"report": report, "spans": spans}
     out["checks"] = checks
     return out
 
@@ -385,13 +418,39 @@ def _window(trainer, steps, seconds, traffic, traced, cuda, box):
     return out
 
 
-def _context(cell, w, summary, prep_s):
-    """What the per-layer readers read."""
+def _context(cell, w, summary, prep_s, spans, report):
+    """What the per-layer readers read (each is None where a run has
+    nothing to give):
+
+    * ``steps``, ``seconds``: the window's steps and wall seconds;
+    * ``data_wait_s``: host seconds in ``next()`` of the loaders handed to
+      the trainer, over the window;
+    * ``prep_s``: host seconds in ``trainer.prep`` over the window;
+    * ``profile``: :func:`portbench.trace.read` of the profiled span (the
+      ``pb.*`` ranges, busy and span seconds, heaviest ops, idle gaps);
+    * ``program``: :func:`portbench.program_trace.read_program` of the
+      same span: device ms per step under (``under_ms``) and made under
+      (``created_ms``) each of the program's ``hx.*`` spans, by name;
+    * ``program_report``: :func:`portbench.program_trace.read_record`
+      over the whole window: each ``hx.*`` span's calls and host ms, the
+      blocking syncs by span and, on a card, the between-step gaps by the
+      benchmark's timing events, split among the spans the host was in;
+    * ``config``, ``traffic``: the cell's configuration and mix, as
+      loaded, so a reader counts a kernel's FLOPs and bytes from the
+      shapes (through ``portbench.reference.nets.arch(config["arch"])``)
+      against ``portbench.counts.PEAK_FLOPS`` and ``PEAK_BYTES``;
+    * ``step_flops``, ``peak_flops``, ``delta_roofline_s``: the cell's
+      counts of :mod:`portbench.counts`.
+    """
     return types.SimpleNamespace(
         steps=w["steps"], seconds=w["seconds"],
         data_wait_s=w["data_wait_s"],
         prep_s=prep_s,
         profile=summary,
+        program=spans,
+        program_report=report,
+        config=cell.config,
+        traffic=cell.traffic,
         step_flops=counts.step_flops(cell.config, cell.traffic),
         peak_flops=counts.PEAK_FLOPS,
         delta_roofline_s=counts.delta_roofline_s(cell.config, cell.traffic))

@@ -1,9 +1,12 @@
 """The harness on the CPU, on stand-in cells that live only in these
 tests (:mod:`.standin`): the shape of a run's last line, a traced run, a
 cell, mix and metric added as files alone, a network added as files
-alone, an unknown network or CLI named by its file, the whole-name check
-of ``sys.modules``, the checks that a broken EM or Hebbian step fails,
-and no result without the port or without a card."""
+alone, a network's readers of its own span and of its configuration
+added as files alone, an unknown network or CLI named by its file, the
+whole-name check of ``sys.modules``, the port's tracing on in a traced
+window alone and the check's numbers the same with it, the checks that a
+broken EM or Hebbian step fails, and no result without the port or
+without a card."""
 
 import hashlib
 import json
@@ -16,12 +19,16 @@ import sys
 import pytest
 import torch
 
+from hebbax_torch.utils import trace as program
 from portbench import counts, faults, harness, run, spec
 from portbench.reference.nets import Net
 
 from . import standin
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
+PROGRAM_METRICS = {"fold_ms", "optimizer_ms", "gap_ms", "gap_host_ms",
+                   "syncs_per_step"}
+CPU = torch.device("cpu")
 
 
 def _run(root, workload, trace=0, seconds=2, env=None, device="cpu"):
@@ -145,6 +152,147 @@ def test_added_arch_needs_no_edit(tmp_path):
     assert not os.path.exists(os.path.join(root, "build", "portbench"))
     after = _digest(root)
     assert all(after[p] == h for p, h in before.items())
+
+
+# a span that a new network opens in the port and that no file of
+# portbench/ names: the stand-in plants it around its model's forward
+MECHANISM = "hx.standin_mechanism"
+MECHANISM_READER = f'''"""Calls of the network's {MECHANISM} span a step."""
+
+LAYER = "model"
+MOVES = "train_samples_per_s"
+
+
+def read(ctx):
+    r = ctx.program_report
+    if not r or "{MECHANISM}" not in r["spans"] or not ctx.steps:
+        return None
+    return r["spans"]["{MECHANISM}"]["n"] / ctx.steps
+'''
+# a count from the cell's configuration through its arch module, as a
+# roofline reader counts its kernel's work
+BOUND_READER = '''"""The forward's least time at the card's peak, in ms."""
+
+from portbench import counts
+from portbench.reference import nets
+
+LAYER = "model"
+MOVES = "train_samples_per_s"
+
+
+def read(ctx):
+    cfg = ctx.config
+    fwd = nets.arch(cfg["arch"]).forward_flops(
+        cfg, ctx.traffic["flags"]["batch_size"], tuple(cfg["patch_size"]))
+    return fwd / counts.PEAK_FLOPS * 1e3
+'''
+
+
+def _plant_mechanism(trainer):
+    model = trainer.state.model
+    real = model.forward
+
+    def forward(*a, **kw):
+        with program.span(MECHANISM):
+            return real(*a, **kw)
+
+    model.forward = forward
+
+
+def test_a_networks_own_readers_need_no_edit(tmp_path):
+    root = standin.make_root(tmp_path)
+    before = _digest(root)
+    pb = os.path.join(root, "portbench")
+    for name in before:
+        with open(name) as f:
+            assert MECHANISM not in f.read(), name
+    for name, text in (("mechanism_calls", MECHANISM_READER),
+                       ("forward_bound_ms", BOUND_READER)):
+        with open(os.path.join(pb, "metrics", name + ".py"), "w") as f:
+            f.write(text)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    for name, unit in (("mechanism_calls", "calls/step"),
+                       ("forward_bound_ms", "ms")):
+        bench["per_layer"].append(dict(
+            name=name, unit=unit, better="lower", source="program_span",
+            layer="model", moves="train_samples_per_s",
+            workloads=[standin.CELL]))
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    c = spec.Cell(root, standin.CELL, here=pb)
+    r = harness.run_cell(c, 2147483647 + 18, 2, True, CPU, 0.0,
+                         mutate=_plant_mechanism)
+    assert r["correct"] is True and r["attempted"] > 0
+    # an EM step calls the network twice: the unlabelled and the
+    # labelled batch
+    assert r["metrics"]["mechanism_calls"]["value"] == 2.0
+    cfg = c.config
+    assert r["metrics"]["forward_bound_ms"]["value"] == counts.forward_flops(
+        cfg, 1, tuple(cfg["patch_size"])) / counts.PEAK_FLOPS * 1e3
+    assert not program.enabled()
+    after = _digest(root)
+    assert all(after[p] == h for p, h in before.items())
+
+
+@pytest.fixture(scope="module")
+def runs(root):
+    """The stand-in cell in this process on one seed: a traced run (with
+    the readers' context it built), an untraced one (with each call of
+    the program's ``enable`` recorded) and the checked steps alone."""
+    c = spec.Cell(root, standin.CELL, here=os.path.join(root, "portbench"))
+    seed = 2147483647 + 16
+    got = {"cell": c, "enabled": []}
+    with pytest.MonkeyPatch.context() as mp:
+        real = harness._context
+
+        def context(*a):
+            got["ctx"] = real(*a)
+            return got["ctx"]
+
+        mp.setattr(harness, "_context", context)
+        got["traced"] = harness.run_cell(c, seed, 2, True, CPU, 0.0)
+        got["on_after_traced"] = program.enabled()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(program, "enable",
+                   lambda *a, **kw: got["enabled"].append(a))
+        got["untraced"] = harness.run_cell(c, seed, 2, False, CPU, 0.0)
+        got["checked"] = harness.run_cell(c, seed, 0, False, CPU, 0.0,
+                                          window=False)
+    return got
+
+
+def test_a_traced_run_hands_the_readers_the_programs_trace(runs):
+    r, ctx = runs["traced"], runs["ctx"]
+    assert r["correct"] is True and not runs["on_after_traced"]
+    assert ctx.config is runs["cell"].config
+    assert ctx.traffic is runs["cell"].traffic
+    report = ctx.program_report
+    assert report["cuda"] is False and "gaps" not in report
+    assert ctx.steps == r["attempted"]
+    assert report["spans"]["hx.step"]["n"] == r["attempted"]
+    assert report["spans"]["hx.forward"]["n"] == 2 * r["attempted"]
+    assert r["run"]["program"]["report"] == report
+    # the CPU has no device operation, no timing event and no sync-debug
+    # mode: the five readers of the program's trace find nothing, and the
+    # line leaves them out
+    assert ctx.program is None
+    for m in PROGRAM_METRICS:
+        assert runs["cell"].reader(m).read(ctx) is None, m
+    assert set(r["metrics"]) == {"data_wait_ms", "prep_ms"}
+
+
+def test_an_untraced_run_leaves_the_programs_tracing_off(runs):
+    r = runs["untraced"]
+    assert runs["enabled"] == [] and not program.enabled()
+    assert set(r["metrics"]) == {"train_samples_per_s", "setup_s"}
+    assert "program" not in r["run"]
+
+
+def test_the_programs_tracing_leaves_the_check_as_it_was(runs):
+    checks = [{k: c["value"] for k, c in runs[run]["checks"].items()}
+              for run in ("traced", "untraced", "checked")]
+    assert checks[0] == checks[1] == checks[2]
 
 
 @pytest.mark.parametrize("lookup,file", [

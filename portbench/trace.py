@@ -11,7 +11,12 @@ around each ``next()`` of a loader handed to the trainer and
 
 A device operation (kernel, copy or fill) belongs to every range whose
 host interval holds the runtime call that launched it (CUPTI's
-correlation id ties the two)."""
+correlation id ties the two).
+
+The same profile also holds the program's own ``hx.*`` ranges, which a
+traced run turns on for its window: :func:`read` skips them and reads
+the ``pb.*`` ones alone, and :func:`portbench.program_trace.read_program`
+reads the ``hx.*`` ones beside it."""
 
 import bisect
 
