@@ -238,7 +238,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the sites it saw), its deltas and BN running statistics, one
    fine-tune step's gradients; (al) each 3D ``_s2d`` name likewise at
    batch 1, 96x96x80 (no K1 launch) with both peaks and the folded
-   step's P1 launches (its folded pools), ``unet3d_urpc_s2d``'s
+   step's P1 launches (its folded pools: 2 on ``unet3d_urpc_s2d``, 0 on
+   the ``unet3d_s2d`` names, which run as their unfolded twins, and on
+   the VNet names), ``unet3d_urpc_s2d``'s
    gradients compared in float64 on the CPU (P1 takes float32 and
    bfloat16); (am) steady step
    (``measure_step``), device busy share and peak memory of
@@ -282,8 +284,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the bit to phase 7's ``mask_sdf1`` maps and (m)'s post-processing; K1
    0 launches in (ar) and (at); one ``entry_path`` line carries them;
 17. print the ``{"kernels": [...]}`` line (K1 with ``launches_by_path``:
-   a, urpc_pretrain, cct_pretrain and the paths of 6 to 16; P1 with its
-   launches on (p), (t) and (al), where each run's count is a positive
+   a, urpc_pretrain, cct_pretrain and the paths of 6 to 16; P1 with
+   ``urpc_3d``'s launches and those on (p), (t) and (al), where each
+   run's count is a positive
    multiple of its steps on a network that pools folded and 0
    otherwise, and each (al) fine-tune step's count is the network's
    number of folded pools), the card's name and power limit, and last
@@ -3921,11 +3924,10 @@ S2D_HEADS = {"unet": ("out_conv",), "unet_urpc": DEEP4["unet_urpc"][0],
              "vnet_cct": ("main_decoder.out_tr.conv2",)}
 S2D_K1 = {"unet_s2d": 22, "unet_urpc_s2d": 22, "unet_cct_s2d": 58,
           "unet_cct_s2d_batched": 22, "unet_s2d_head2": 22}
-# P1 launches of one fine-tune forward and backward: the network's folded
-# 3D pools (every other network: none)
-S2D_P1 = {"unet3d_s2d": 1, "unet3d_dtc_s2d": 1, "unet3d_cct_s2d": 1,
-          "unet3d_cct_s2d_rc": 1, "unet3d_cct_s2d_batched": 1,
-          "unet3d_cct_s2d_batched_rc": 1, "unet3d_urpc_s2d": 2}
+# P1 launches of one fine-tune forward and backward on the card: the
+# network's folded 3D pools (every other network: none; the unet3d_s2d
+# names run as their unfolded twins and pool through F.max_pool3d)
+S2D_P1 = {"unet3d_urpc_s2d": 2}
 # P1 launches by path, filled by (p), (t) and (al)
 P1_LAUNCHES = {}
 S2D_OUT_TOL = 1e-4      # folded vs twin outputs, of max(1, max|output|)
@@ -5252,7 +5254,7 @@ def main():
         "route": "cuda",
         "source": SubpixelMax3Kernel.source,
         "replaces": None,
-        "launches": P1_LAUNCHES["em_3d"],
+        "launches": P1_LAUNCHES["urpc_3d"],
         "launches_by_path": dict(P1_LAUNCHES),
         "ms": pool_rows[0]["ms"],
         "plain_ms": pool_rows[0]["plain_ms"],

@@ -1,9 +1,10 @@
 """Model zoo: UNet2D, UNetURPC2D, UNetCCT2D and their folded forms
 (``models.unet2d_s2d``), the unsupervised baselines (UNetVAE2D,
 UNetSuperpix2D, DDPMUNet), the 3D family (UNet3D, UNet3DDTC, UNet3DCCT,
-UNet3DURPC, UNet3DVAE, UNet3DSuperpix; folded: ``models.unet3d_s2d``,
-``models.urpc3d_s2d``), the VNet family (VNet, VNetCCT, VNetDTC; folded:
-``models.vnet_s2d``), the spiking VGG9 (SNNVGG, ANNVGG), the RAD-DINO
+UNet3DURPC, UNet3DVAE, UNet3DSuperpix; hebbax's folded names:
+``models.unet3d_s2d``, run unfolded, and ``models.urpc3d_s2d``), the
+VNet family (VNet, VNetCCT, VNetDTC; folded: ``models.vnet_s2d``), the
+spiking VGG9 (SNNVGG, ANNVGG), the RAD-DINO
 encoder and decoder (``models.raddino``) and the network registry."""
 
 from .registry import (available_networks, get_network, network_meta,

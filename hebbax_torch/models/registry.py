@@ -13,6 +13,8 @@ The 17 ``*_s2d`` names build hebbax's space-to-depth folded classes
 parameter trees are the unfolded twins', so snapshots cross between
 ``unet`` and ``unet_s2d`` (``unet3d`` / ``unet3d_s2d``, ``vnet`` /
 ``vnet_s2d``, ...) both ways, and only the compute layout differs.  The
+``unet3d_s2d`` names (``unet3d_dtc_s2d``, ``unet3d_cct_s2d`` and its
+variants) run as their unfolded twins (:mod:`.unet3d_s2d`).  The
 baselines have no folded name, in hebbax either.  Two options of the CCT
 networks carry over:
 

@@ -136,8 +136,9 @@ def test_train_forward_deltas_and_bn_stats_match():
 
 
 def test_registry_names():
-    """``unet3d`` / ``unet3d_min`` build UNet3D, ``unet3d_s2d`` the folded
-    UNet3DS2D (``models/unet3d_s2d.py``), with the same parameters."""
+    """``unet3d`` / ``unet3d_min`` build UNet3D, ``unet3d_s2d`` UNet3DS2D
+    (``models/unet3d_s2d.py``: UNet3D under hebbax's name), with the same
+    parameters."""
     for name, f, cls in (("unet3d", 64, UNet3D),
                          ("unet3d_s2d", 64, UNet3DS2D),
                          ("unet3d_min", 32, UNet3D)):

@@ -14,6 +14,9 @@ not fill the kernel's vectors, a misaligned x, a strided cotangent, and
 the shape of unet3d_s2d's folded level at 96x96x80.  Here, without a
 card, a CPU tensor takes the plain version, which neither builds nor
 counts a kernel, and the wrapper refuses what the kernel does not take.
+``unet3d_s2d`` runs unfolded (``models/unet3d_s2d.py``), so its EM step
+on the card launches P1 zero times and matches the same step on the CPU;
+``unet3d_urpc_s2d`` keeps its folded pools, two launches a pass.
 """
 
 import pytest
@@ -200,34 +203,97 @@ def test_cuda_check_refuses(cuda_device, case, alter, match):
     assert SUBPIXEL_MAX3.launches == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
-def test_cuda_em_step_launches_twice(cuda_device, dtype):
-    """One EM step of unet3d_s2d runs two folded forwards, so two pool
-    backwards: two launches."""
+# the EM step on the card against the same step on the CPU: logits within
+# OUT_TOL of max(1, max|logits|) of the CPU's float32 ones
+# (test_torch_s2d_nets.py's bound for two layouts of one network); the
+# step's parameter change (the gradient: SGD's first step at lr 1) held
+# to the CPU's float64 step, its worst parameter's gap within GRAD_TOL of
+# the largest change (float32 alone reads up to 1.78e-3 of it on the card
+# and 1.53e-3 on the CPU over three input seeds, at 64 features and batch
+# 1); bfloat16: logits within BF16_TRAIN_TOL (test_torch_bf16.py's
+# training forward bound) and the change's relative L2 miss within
+# BF16_TRAVEL_TOL (its step's parameter-travel bound)
+OUT_TOL, GRAD_TOL = 1e-4, 5e-3
+BF16_TRAIN_TOL, BF16_TRAVEL_TOL = 2e-1, 5e-1
+
+
+def _em_step(device, dtype, sup, unsup, lr=1.0, double=False):
+    """One EM step of unet3d_s2d on ``device`` from the seed-5 weights
+    (``double``: the network and the images in float64): (logits, each
+    parameter's change)."""
     from hebbax_torch.engine import semi
     from hebbax_torch.engine.state import TrainState
     from hebbax_torch.models import get_network
     from hebbax_torch.ops.losses import dice_loss
 
-    gen = torch.Generator(device=cuda_device).manual_seed(5)
-    model = get_network("unet3d_s2d", 1, 2, device=cuda_device,
+    model = get_network("unet3d_s2d", 1, 2, device=device,
                         generator=torch.Generator().manual_seed(5),
                         dtype=dtype)
-    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
-    state = TrainState(model=model, optimizer=opt, schedule=lambda c: 0.01)
+    if double:
+        model = model.double()
+        sup = {k: v.double() if v.is_floating_point() else v
+               for k, v in sup.items()}
+        unsup = unsup.double()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9)
+    state = TrainState(model=model, optimizer=opt, schedule=lambda c: lr)
     step = semi.make_semi_step(model, "unet3d_s2d", dice_loss,
                                semi.em_unsup(2))
-    shape = (1, 1, 32, 32, 32)
-    sup = {"image": torch.randn(shape, generator=gen, device=cuda_device),
-           "mask": (torch.rand(shape[:1] + shape[2:], generator=gen,
-                               device=cuda_device) > 0.5).long()}
-    unsup = {"image": torch.randn(shape, generator=gen, device=cuda_device)}
-    before = SUBPIXEL_MAX3.launches
-    state, out = step(state, sup, unsup, 0.1)
-    torch.cuda.synchronize()
-    assert SUBPIXEL_MAX3.launches == before + 2
+    move = {k: v.to(device) for k, v in sup.items()}
+    state, out = step(state, move, {"image": unsup.to(device)}, 0.1)
     assert torch.isfinite(out["loss"])
+    change = {n: (p.detach() - before[n]).float().cpu()
+              for n, p in model.named_parameters()}
+    return out["logits"].float().cpu(), change
+
+
+def _worst(change, truth):
+    """(the worst parameter's largest gap over the largest |change| of
+    ``truth``, its name)."""
+    scale = max(float(c.abs().max()) for c in truth.values())
+    return max((float((change[n] - c).abs().max()) / scale, n)
+               for n, c in truth.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_cuda_em_step_launches_twice(cuda_device, dtype, monkeypatch):
+    """One EM step of unet3d_s2d runs two forwards.  hebbax folds their
+    full-resolution level and pools it through the subpixel max, P1 on
+    the card (two launches); the port runs the network unfolded
+    (``models/unet3d_s2d.py``), so the step launches P1 zero times, and
+    its logits and parameter change match the same step on the CPU."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(5)
+    shape = (1, 1, 32, 32, 32)
+    sup = {"image": torch.randn(shape, generator=gen),
+           "mask": (torch.rand(shape[:1] + shape[2:], generator=gen)
+                    > 0.5).long()}
+    unsup = torch.randn(shape, generator=gen)
+    before = SUBPIXEL_MAX3.launches
+    logits, change = _em_step(cuda_device, dtype, sup, unsup)
+    torch.cuda.synchronize()
+    assert SUBPIXEL_MAX3.launches == before
+    ref_logits, ref_change = _em_step("cpu", dtype, sup, unsup)
+    tol = OUT_TOL if dtype is None else BF16_TRAIN_TOL
+    scale = max(1.0, float(ref_logits.abs().max()))
+    err = float((logits - ref_logits).abs().max()) / scale
+    print(f"em step logits {dtype}: {err:.3e} of scale")
+    assert err <= tol
+    if dtype is None:
+        _, truth = _em_step("cpu", None, sup, unsup, double=True)
+        card, cpu = _worst(change, truth), _worst(ref_change, truth)
+        print(f"em step change against float64: card {card[0]:.3e} at "
+              f"{card[1]}, CPU float32 {cpu[0]:.3e} at {cpu[1]}")
+        assert card[0] <= GRAD_TOL, (card, cpu)
+    else:
+        miss = sum(float((change[n] - c).square().sum())
+                   for n, c in ref_change.items())
+        ref = sum(float(c.square().sum()) for c in ref_change.values())
+        print(f"em step change (bf16): relative L2 miss "
+              f"{(miss / ref) ** 0.5:.3e}")
+        assert (miss / ref) ** 0.5 <= BF16_TRAVEL_TOL
 
 
 @pytest.mark.cuda

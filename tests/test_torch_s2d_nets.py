@@ -9,7 +9,10 @@ and against the port's unfolded twins.
   generators have the same parameters, and with dropout and the CCT
   perturbations ON (the folded ones draw the twin's masks and draws) give
   the same eval and training outputs, BN statistics, Hebbian deltas
-  (swta_t, K=50, heads excluded) and one step's gradients.
+  (swta_t, K=50, heads excluded) and one step's gradients.  The
+  ``unet3d_s2d`` names build their twins (``models/unet3d_s2d.py``), so
+  for them the checks against hebbax's folded classes are the ones that
+  bind.
 * hebbax: its folded class on the port's weights (``bridge.to_flax``),
   dropout off in both (the streams differ by design), CCT draws replayed
   from hebbax (``DrawRecorder``): eval outputs of every name, and the

@@ -15,7 +15,7 @@ import torch
 
 from hebbax_torch.cli import common3d, train_semi_3d
 from hebbax_torch.data.nrrd_io import write_nrrd
-from hebbax_torch.models.unet3d_s2d import UNet3DS2D
+from hebbax_torch.models.urpc3d_s2d import UNet3DURPCS2D
 from hebbax_torch.utils import trace
 
 
@@ -198,9 +198,9 @@ def test_a_semi_epoch_opens_each_span_its_sites_name(volumes, tmp_path):
 def test_a_folded_forward_and_backward_open_fold_spans_and_change_nothing():
     def run():
         torch.manual_seed(0)
-        net = UNet3DS2D(in_channels=1, n_cls=2, init_features=4)
+        net = UNet3DURPCS2D(in_channels=1, n_cls=2)
         x = torch.randn(1, 1, 16, 16, 16)
-        y = net(x)
+        y = torch.stack(net(x))
         grads = torch.autograd.grad(y.square().sum(), list(net.parameters()))
         return y.detach(), grads
 
